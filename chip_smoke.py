@@ -31,7 +31,23 @@ the result line is printed:
              (fail above 1e-5 of max |logit|). The small flagship spec is
              served on the card and on the CPU (plain versions) from the same
              parameters and compared at rtol = atol = 1e-5.
-6. the kernels line (JSON), the nvidia-smi line, and the result line.
+6. wire    — quant_pack and dequant_unpack against their plain versions at
+             the Int2 wire's shape (28,032 rows) for bits in {2, 4, 8} and
+             F in {100, 256, 47}: packed words, zero, scale and the
+             dequantized values must be bitwise equal; then times.
+7. train   — the training main path: build_session on the card for
+             train_products_paper (3-layer GraphSAGE, hidden 256, 16384-node
+             graph, 8 workers stacked, hierarchical 2x4, Int2 inter wire,
+             inter_cd=2). The stacked seg_aggregate and its backward are held
+             to their plain versions on the session's own layouts (rtol =
+             atol = 1e-5); then the launch counts are reset, 4 epochs run
+             (refresh and stale epochs of the inter cache, twice) and the
+             model is evaluated; every kernel must have launched. A fifth,
+             profiled epoch gives the device's busy share and top operations.
+8. train parity — the small flagship spec (vmap) for 3 epochs on the card
+             and on the CPU, randomness drawn on the CPU and copied to both:
+             fp32 inter wire within 1e-5, Int2 inter wire within 1e-3.
+9. the kernels line (JSON), the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
@@ -85,18 +101,36 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
+def _syncs(fn) -> bool:
+    """Whether one ``fn`` call makes the host wait for the device."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return False
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, what: str = "", calls: int = 20, reps: int = 7) -> float:
     """Median device time of one ``fn`` call with the host's launch cost
     hidden: a GPU sleep holds the stream while the host enqueues ``calls``
     calls, and CUDA events around them time the device alone. If the
     sleep ends before the host has enqueued them all, it is doubled and
-    the run repeated."""
+    the run repeated. A call that waits for the device (so no sleep can
+    hide its host side), or one the host cannot enqueue under a 4 s sleep,
+    is timed instead as the profiler's sum of its device activities per
+    call, and a line says so."""
     import torch
     fn()
-    torch.cuda.synchronize()
+    syncs = _syncs(fn)
     cycles = 10_000_000          # ~5 ms at the H100's ~2 GHz clock
     per_call = []
-    while len(per_call) < reps:
+    while not syncs and len(per_call) < reps and cycles <= 2**33:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -108,18 +142,22 @@ def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
         torch.cuda.synchronize()
         if late:
             cycles *= 2
-            if cycles > 2**36:
-                fail("device_ms: the host cannot enqueue the calls under any sleep")
             continue
         per_call.append(start.elapsed_time(end) / calls)
-    return statistics.median(per_call)
+    if len(per_call) == reps:
+        return statistics.median(per_call)
+    _, busy_s, _ = profile_device(lambda: [fn() for _ in range(calls)])
+    print(f"[timing] {what or 'a timed call'} waits for the device, or its host "
+          f"side outlasts a 4 s sleep: its device time is the profiler's sum of "
+          f"its device activities over {calls} calls", flush=True)
+    return busy_s / calls * 1e3
 
 
 def max_err(got, want) -> float:
     """Max |got - want|; fails unless within rtol = atol = TOL."""
     import torch
     torch.cuda.synchronize()
-    err = float((got - want).abs().max()) if got.numel() else 0.0
+    err = float((got - want).detach().abs().max()) if got.numel() else 0.0
     if not torch.allclose(got, want, rtol=TOL, atol=TOL):
         fail(f"kernel disagrees with its plain version: max abs err {err}")
     return err
@@ -174,6 +212,36 @@ def check_kernels(dev) -> float:
     return worst
 
 
+def aggregation_bytes(lay, in_rows: int, out_values: int, f: int):
+    """(bytes, edges) one aggregation over ``lay`` must move, counted from
+    this run's layout: 8 B (source id and weight) per real edge (a slot of
+    nonzero weight in a real row), 4 B per real row's destination id, each
+    source row that a real edge names read once, and each of the
+    ``out_values`` output values written once. Padding rows, padded slots
+    and source rows no edge names (a stack pads every worker to the largest
+    worker's rows) are not counted."""
+    import torch
+
+    edges = rows = 0
+    sources = []
+    for b in lay.buckets:
+        if not b.n:
+            continue
+        idx, w, counts = b.idx, b.w, b.counts
+        if counts is None:                       # one graph: a stack of one
+            idx, w = idx[None], w[None]
+            counts = torch.tensor([b.n], device=idx.device)
+        real = (torch.arange(idx.shape[1], device=idx.device)[None, :]
+                < counts[:, None].long())
+        live = (w != 0) & real[..., None]
+        edges += int(live.sum())
+        rows += int(counts.sum())
+        off = torch.arange(idx.shape[0], device=idx.device)[:, None, None] * in_rows
+        sources.append((idx.long() + off)[live])
+    src_rows = int(torch.unique(torch.cat(sources)).numel()) if sources else 0
+    return edges * 8 + rows * 4 + src_rows * f * 4 + out_values * 4, edges
+
+
 def operator_numbers(name, x, lay, csr, out_rows, n_real) -> dict:
     """Kernel, plain and library times and the bound for one aggregation."""
     import torch
@@ -195,19 +263,21 @@ def operator_numbers(name, x, lay, csr, out_rows, n_real) -> dict:
     kernel = lambda: sa.bucketed_aggregate(x, lay, out_rows)
     plain = lambda: sa.bucketed_forward_ref(x, lay, out_rows)
     library = lambda: torch.sparse.mm(a, x)
-    ms, plain_ms, library_ms = (device_ms(f) for f in (kernel, plain, library))
+    ms, plain_ms, library_ms = (device_ms(fn, f"{name}: {what}") for fn, what in (
+        (kernel, "kernel"), (plain, "plain"), (library, "torch.sparse.mm")))
     call_ms = [time_ms(f) for f in (kernel, plain, library)]
     slots = sum(b.n * b.idx.shape[1] for b in lay.buckets)
     rows = sum(b.n for b in lay.buckets)
-    nbytes = slots * 8 + rows * 4 + n_real * f * 4 + out_rows * f * 4
+    nbytes, edges = aggregation_bytes(lay, x.shape[0], out_rows * f, f)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * slots * f / FP32_FLOP_PER_S * 1e3
+    ops_ms = 2.0 * edges * f / FP32_FLOP_PER_S * 1e3
     r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "max_abs_err": err, "call_ms": call_ms}
     print(f"[kernels] {name}: F={f} out_rows={out_rows} src_rows={n_real} "
-          f"real_rows={rows} slots={slots} launches={sum(1 for b in lay.buckets if b.n)} "
+          f"real_rows={rows} slots={slots} edges={edges} "
+          f"launches={sum(1 for b in lay.buckets if b.n)} "
           f"| device time per call: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
           f"torch.sparse.mm {library_ms:.5f} ms (max diff {lib_err:.2e}); bound "
           f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B) | per call with host "
@@ -300,32 +370,41 @@ def serve_main_path(server) -> dict:
     return r
 
 
-def device_busy(server, rng) -> dict:
-    """Device busy share of a second, profiled burst of 16 requests: the sum
-    of the device activities torch.profiler records over the wall time."""
+def profile_device(fn):
+    """Run ``fn`` under torch.profiler: (wall s, device busy s, device
+    seconds by operation name), busy being the sum of the device activities
+    the profiler records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    return wall, sum(by_name.values()), by_name
+
+
+def device_busy(server, rng) -> dict:
+    """Device busy share of a second, profiled burst of 16 requests."""
     from repro_torch.launch.serve import burst
 
     requests = [[int(v)] for v in rng.integers(0, server.graph.num_nodes, 16)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = burst(server, requests, BATCH)
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
-    agg = [e for e in dev if "seg_aggregate" in e.name]
-    agg_s = sum(e.time_range.elapsed_us() for e in agg) * 1e-6
-    if not dev:
+    wall, busy_s, by_name = profile_device(lambda: burst(server, requests, BATCH))
+    agg_s = sum(v for k, v in by_name.items() if "seg_aggregate" in k)
+    if not by_name:
         print(f"[serve] profiled burst of 16 requests: wall {wall:.4f} s, device "
               "busy share not measured (the profiler recorded no device activity)",
               flush=True)
         return {"device_busy_share": None}
     print(f"[serve] profiled burst of 16 requests: wall {wall:.4f} s, device busy "
-          f"{busy_s:.6f} s ({busy_s / wall:.2%}; idle {1 - busy_s / wall:.2%}) over "
-          f"{len(dev)} device activities; seg_aggregate kernels {len(agg)}, "
-          f"{agg_s:.6f} s", flush=True)
-    return {"device_busy_share": busy_s / wall,
-            "agg_kernel_s": agg_s, "agg_kernels_seen": len(agg)}
+          f"{busy_s:.6f} s ({busy_s / wall:.2%}; idle {1 - busy_s / wall:.2%}); "
+          f"seg_aggregate kernels {agg_s:.6f} s", flush=True)
+    return {"device_busy_share": busy_s / wall, "agg_kernel_s": agg_s}
 
 
 def parity(dev) -> None:
@@ -359,6 +438,265 @@ def parity(dev) -> None:
           f"(plain versions) agree within rtol=atol={TOL}", flush=True)
 
 
+# -- phase 6: the quantized wire's kernels ------------------------------------
+
+WIRE_ROWS = 28032   # Int2 inter wire of train_products_paper: 8 workers x 3504 rows
+
+
+def check_quant_kernels(dev) -> dict:
+    """quant_pack / dequant_unpack vs their plain versions, bitwise, at the
+    wire's shape; times at F = 256, bits = 2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels.ref import dequant_unpack_ref, quant_pack_ref
+
+    def compare(x, u, bits, f) -> tuple:
+        """Kernel vs plain on one input; fails unless bitwise equal. Returns
+        max |kernel - plain| over the dequantized values of quant_pack's
+        output and of dequant_unpack."""
+        got = qp.quant_pack(x, u, bits)
+        want = quant_pack_ref(x, u, bits)
+        for name, a, b in zip(("packed", "zero", "scale"), got, want):
+            if not torch.equal(a, b):
+                fail(f"quant_pack bits={bits} F={f}: {name} differs from the plain "
+                     f"version in {int((a != b).sum())} places")
+        plain = dequant_unpack_ref(*want, bits, f)
+        deq = qp.dequant_unpack(*want, bits, f)
+        if not torch.equal(deq, plain):
+            fail(f"dequant_unpack bits={bits} F={f}: differs from the plain version")
+        return (float((dequant_unpack_ref(*got, bits, f) - plain).abs().max()),
+                float((deq - plain).abs().max()))
+
+    rng = np.random.default_rng(3)
+    errs = {"quant_pack": 0.0, "dequant_unpack": 0.0}
+
+    def note(e) -> None:
+        for name, v in zip(errs, e):
+            errs[name] = max(errs[name], v)
+
+    for bits in (2, 4, 8):
+        for f in (100, 256, 47):
+            x = rng.normal(size=(WIRE_ROWS, f)).astype(np.float32)
+            x[8:12] = 0.25                          # a group with an empty range
+            u = rng.uniform(size=(WIRE_ROWS, f)).astype(np.float32)
+            u[:4] = np.float32(1.0) - np.float32(2.0**-24)  # noise next to 1
+            note(compare(torch.from_numpy(x).to(dev), torch.from_numpy(u).to(dev),
+                         bits, f))
+    print(f"[wire] quant_pack and dequant_unpack equal their plain versions bitwise "
+          f"(packed words, zero, scale, dequantized values) at {WIRE_ROWS} rows, "
+          f"bits in (2, 4, 8), F in (100, 256, 47)", flush=True)
+
+    f, bits = 256, 2
+    x = torch.from_numpy(rng.normal(size=(WIRE_ROWS, f)).astype(np.float32)).to(dev)
+    u = torch.rand((WIRE_ROWS, f), device=dev)
+    note(compare(x, u, bits, f))
+    packed, zero, scale = qp.quant_pack(x, u, bits)
+    words = packed.shape[1]
+    groups = WIRE_ROWS // 4
+    out = {}
+    for name, kernel, plain, nbytes in (
+            ("quant_pack", lambda: qp.quant_pack(x, u, bits),
+             lambda: quant_pack_ref(x, u, bits),
+             WIRE_ROWS * f * 8 + WIRE_ROWS * words * 4 + groups * 8),
+            ("dequant_unpack", lambda: qp.dequant_unpack(packed, zero, scale, bits, f),
+             lambda: dequant_unpack_ref(packed, zero, scale, bits, f),
+             WIRE_ROWS * words * 4 + groups * 8 + WIRE_ROWS * f * 4)):
+        ms, plain_ms = device_ms(kernel, name), device_ms(plain, f"{name} plain")
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": None, "max_abs_err": errs[name]}
+        print(f"[wire] {name} at {WIRE_ROWS} rows, F={f}, bits={bits}: max abs err "
+              f"{errs[name]:.3e} over every compared shape; device time per "
+              f"call kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; bound {bound_ms:.5f} ms "
+              f"(bytes: {nbytes} B)", flush=True)
+    return out
+
+
+# -- phase 7: training ---------------------------------------------------------
+
+
+def _block_diag_csr(lay, out_rows, in_rows, dev):
+    """The stacked layout as one block-diagonal sparse matrix [P*out_rows,
+    P*in_rows], for the torch.sparse.mm yardstick."""
+    import torch
+
+    rows, cols, vals = [], [], []
+    for b in lay.buckets:
+        p = b.idx.shape[0]
+        real = torch.arange(b.idx.shape[1], device=dev)[None, :] < b.counts[:, None].long()
+        off = torch.arange(p, device=dev)[:, None]
+        r = (b.rows.long() + off * out_rows)[real]
+        c = (b.idx.long() + (off * in_rows)[..., None])[real]
+        w = b.w[real]
+        rows.append(r[:, None].expand_as(c).reshape(-1))
+        cols.append(c.reshape(-1))
+        vals.append(w.reshape(-1))
+    p = lay.buckets[0].idx.shape[0]
+    a = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                torch.cat(vals), (p * out_rows, p * in_rows))
+    return a.coalesce().to_sparse_csr()
+
+
+def stacked_numbers(name, lay, in_rows, out_rows, f, dev, backward) -> dict:
+    """Kernel vs plain on one stacked layout; times, bound and a library
+    call (torch.sparse.mm over the block-diagonal matrix)."""
+    import torch
+
+    from repro_torch.kernels import seg_aggregate as sa
+
+    p = lay.buckets[0].idx.shape[0]
+    x = torch.randn((p, in_rows, f), device=dev)
+    kernel = lambda: sa._bucketed_forward(x, lay, out_rows, backward=backward)
+    plain = lambda: sa.bucketed_forward_ref(x, lay, out_rows)
+    err = max_err(kernel(), plain())
+    a = _block_diag_csr(lay, out_rows, in_rows, dev)
+    xf = x.reshape(p * in_rows, f)
+    library = lambda: torch.sparse.mm(a, xf)
+    lib_err = float((library().reshape(p, out_rows, f) - kernel()).abs().max())
+    ms, plain_ms, library_ms = (device_ms(fn, f"{name}: {what}") for fn, what in (
+        (kernel, "kernel"), (plain, "plain"), (library, "torch.sparse.mm")))
+    slots = sum(int(b.counts.sum()) * b.idx.shape[-1] for b in lay.buckets)
+    real_rows = sum(int(b.counts.sum()) for b in lay.buckets)
+    nbytes, edges = aggregation_bytes(lay, in_rows, p * out_rows * f, f)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * edges * f / FP32_FLOP_PER_S * 1e3
+    r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "max_abs_err": err}
+    print(f"[train] {name}: {p} workers, F={f}, {in_rows}->{out_rows} rows, real rows "
+          f"{real_rows}, slots {slots}, edges {edges}, "
+          f"{sum(1 for b in lay.buckets if b.n)} launches | "
+          f"max abs err {err:.3e} | device time per call: kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, torch.sparse.mm {library_ms:.5f} ms (max diff "
+          f"{lib_err:.2e}); bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B)",
+          flush=True)
+    return r
+
+
+def check_train_kernels(session, dev) -> dict:
+    """The stacked aggregation and its backward on the session's own
+    layouts (local graph, rectangular inter-stage receive scatter), and the
+    autograd path through them, against the plain versions."""
+    import torch
+
+    from repro_torch.kernels import seg_aggregate as sa
+
+    wd = session.wd
+    m = wd.x.shape[1]
+    inter = wd.hier_plan.inter
+    wire = inter.send_gather_idx.shape[1]
+    worst = 0.0
+    for f in (100, 256, 47):
+        for lay, lay_t, n_in, n_out in ((wd.ell, wd.ell_t, m, m),
+                                        (inter.recv_ell, inter.recv_ell_t, wire, m)):
+            x = torch.randn((wd.x.shape[0], n_in, f), device=dev, requires_grad=True)
+            y = sa.bucketed_aggregate(x, lay, n_out, ell_t=lay_t)
+            worst = max(worst, max_err(y, sa.bucketed_forward_ref(x.detach(), lay, n_out)))
+            g = torch.randn_like(y)
+            (dx,) = torch.autograd.grad(y, x, g)
+            worst = max(worst, max_err(dx, sa.bucketed_forward_ref(g, lay_t, n_in)))
+    print(f"[train] stacked seg_aggregate forward and backward (autograd over the "
+          f"reverse layout) agree with the plain versions on the local and the "
+          f"inter receive layouts at F in (100, 256, 47): max abs err {worst:.3e} "
+          f"(rtol=atol={TOL})", flush=True)
+    fwd = stacked_numbers("seg_aggregate forward, local graph", wd.ell, m, m, 256, dev,
+                          backward=False)
+    bwd = stacked_numbers("seg_aggregate backward, local graph (ell_t)", wd.ell_t, m, m,
+                          256, dev, backward=True)
+    for r in (fwd, bwd):
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
+    return {"forward": fwd, "backward": bwd}
+
+
+TRAIN_EPOCHS = 4
+
+
+def train_main_path(session) -> dict:
+    """4 epochs of train_products_paper on the card, then evaluate; the
+    kernel launch counts are reset just before and read just after."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import seg_aggregate as sa
+
+    sa.launches = sa.backward_launches = qp.pack_launches = qp.unpack_launches = 0
+    epochs = []
+    for _ in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = session.train_epoch()
+        torch.cuda.synchronize()
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        epochs.append(m)
+    acc = session.evaluate()
+    counts = {"seg_aggregate": sa.launches, "seg_aggregate_backward": sa.backward_launches,
+              "quant_pack": qp.pack_launches, "dequant_unpack": qp.unpack_launches}
+    for i, m in enumerate(epochs):
+        print(f"[train] epoch {i}: loss {m['loss']:.6f} train_acc {m['train_acc']:.4f} "
+              f"{m['ms']:.3f} ms (CUDA-synchronized host clock)", flush=True)
+        if not math.isfinite(m["loss"]):
+            fail(f"non-finite training loss at epoch {i}: {m['loss']}")
+    print(f"[train] eval accuracy after {TRAIN_EPOCHS} epochs: {acc:.4f}", flush=True)
+    print(f"[train] kernel launches on the main path ({TRAIN_EPOCHS} epochs + eval): "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    for k, v in counts.items():
+        if v <= 0:
+            fail(f"the training main path launched no {k} kernel")
+    wall, busy_s, by_name = profile_device(session.train_epoch)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    if by_name:
+        print(f"[train] profiled epoch: wall {wall:.4f} s, device busy {busy_s:.6f} s "
+              f"({busy_s / wall:.2%}; idle {1 - busy_s / wall:.2%})", flush=True)
+        for name, sec in top:
+            print(f"[train]   {sec * 1e3:9.3f} ms {sec / busy_s:6.1%}  {name[:90]}",
+                  flush=True)
+    else:
+        print(f"[train] profiled epoch: wall {wall:.4f} s, device busy share not "
+              "measured (the profiler recorded no device activity)", flush=True)
+    return {"epochs": epochs, "eval_acc": acc, "launches": counts,
+            "device_busy_share": busy_s / wall if by_name else None}
+
+
+# -- phase 8: training on the card vs the CPU ----------------------------------
+
+
+def train_parity(dev) -> None:
+    import numpy as np
+
+    from repro_torch.configs.train_products_paper import FLAGSHIP
+    from repro_torch.core import GeneratorRandomness
+    from repro_torch.run import RunSpec, build_session
+
+    base = RunSpec.from_dict(FLAGSHIP)
+
+    def losses(spec, device):
+        s = build_session(spec, device=device,
+                          randomness=GeneratorRandomness(spec.exec.seed, draw_device="cpu"))
+        return np.array([s.train_epoch()["loss"] for _ in range(3)])
+
+    for label, extra, tol, why in (
+            ("fp32 inter wire", ["schedule.inter_bits=0"], 1e-5,
+             "cuBLAS and the CPU's BLAS sum in other orders (last-bit differences)"),
+            ("Int2 inter wire", [], 1e-3,
+             "a last-bit difference before the stochastic rounding can move one "
+             "element across a floor(), which changes it by a whole quantization "
+             "level")):
+        spec = base.with_overrides(extra)
+        card, card2, cpu = losses(spec, dev), losses(spec, dev), losses(spec, "cpu")
+        diff = float(np.abs(card - cpu).max())
+        print(f"[parity] small flagship spec, {label}, 3 epochs: card losses "
+              f"{card.tolist()}, CPU losses {cpu.tolist()}; max diff {diff:.3e} "
+              f"(bar {tol}: {why}); two card runs identical: "
+              f"{bool(np.array_equal(card, card2))}", flush=True)
+        if not np.all(np.isfinite(card)) or diff > tol:
+            fail(f"training on the card and on the CPU differ by {diff} ({label})")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -376,7 +714,9 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
+    from repro_torch.configs.train_products_paper import train_products_paper
     from repro_torch.kernels import build
+    from repro_torch.run import build_session
     from repro_torch.serve import build_server
 
     t0 = time.perf_counter()
@@ -400,18 +740,45 @@ def main() -> None:
     timings = time_serve_shapes(server, dev)
     served = serve_main_path(server)
     parity(dev)
+    del server
+
+    wire = check_quant_kernels(dev)
+
+    t0 = time.perf_counter()
+    tspec = train_products_paper()
+    session = build_session(tspec, device=dev)
+    wd = session.wd
+    print(f"[train] built {tspec.describe()} in {time.perf_counter() - t0:.2f} s: "
+          f"{session.graph.num_nodes} nodes, {session.graph.num_edges} edges, "
+          f"x {tuple(wd.x.shape)}, dims {session.trainer.cfg.dims()}, schedule "
+          f"{session.schedule.describe()}", flush=True)
+    agg = check_train_kernels(session, dev)
+    trained = train_main_path(session)
+    del session
+    train_parity(dev)
 
     t = timings["serve_F256"]
-    kernels = [{
-        "name": "seg_aggregate",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/seg_aggregate.cu",
-        "replaces": "src/repro/kernels/seg_aggregate.py:91",
-        "launches": served["launches"],
-        "max_abs_err": max(worst, *(v["max_abs_err"] for v in timings.values())),
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }]
+    launches = trained["launches"]
+    kernels = []
+    for name, replaces, nums in (
+            ("seg_aggregate", "src/repro/kernels/seg_aggregate.py:91", agg["forward"]),
+            ("seg_aggregate_backward", "src/repro/kernels/seg_aggregate.py:91",
+             agg["backward"]),
+            ("quant_pack", "src/repro/kernels/quant_pack.py:63", wire["quant_pack"]),
+            ("dequant_unpack", "src/repro/kernels/quant_pack.py:103",
+             wire["dequant_unpack"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/quant_pack.cu" if "quant" in name
+                       else "src/repro_torch/kernels/csrc/seg_aggregate.cu"),
+            "replaces": replaces, "launches": launches[name],
+            **{k: nums[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}})
+    kernels[0]["serve"] = {"launches": served["launches"],
+                           "max_abs_err": max(worst, *(v["max_abs_err"]
+                                                       for v in timings.values())),
+                           **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,21 +1,25 @@
-"""GCN model in PyTorch: config, parameter init, eval forward (Fig 2 flow).
+"""GCN model in PyTorch: config, parameter init, forward (Fig 2 flow).
 
 Counterpart of ``repro/core/model.py``. The forward is parameterized by
 ``agg_fn(layer, h) -> z`` as there:
 
   (1) masked LP: train labels embedded into the features,
   (2) LayerNorm before every GCN layer,
-  (3) aggregation (``agg_fn``),
-  (4) UPDATE (linear transform / MLP), repeat.
+  (3) dropout when training,
+  (4) aggregation (``agg_fn``),
+  (5) UPDATE (linear transform / MLP), repeat.
 
-Only the eval forward is ported; dropout, ``lp_masks`` and
-``loss_and_metrics`` arrive with the training slice.
+The random draws are arguments, because torch cannot replay JAX's
+threefry: ``lp_masks`` takes the Bernoulli selection and ``forward`` a
+``dropout_keep(layer, shape)`` callable that returns the keep mask. Every
+tensor may carry leading worker axes (``[P, N, F]``): the layers act on
+the last axis and ``loss_and_metrics`` sums over the node axis only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -65,26 +69,60 @@ def to_device(params: Dict, device) -> Dict:
     return out
 
 
+def lp_masks(sel: torch.Tensor, train_mask: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split train nodes into (propagate labels, compute loss) — §2.5.
+
+    ``sel`` is the Bernoulli(``lp_rate``) draw of ``train_mask``'s shape.
+    Propagated labels are *excluded* from the loss to avoid label leakage.
+    """
+    return train_mask & sel, train_mask & ~sel
+
+
 def forward(
     params: Dict,
     cfg: GCNConfig,
-    x: torch.Tensor,                 # [N, in_dim] node features
-    labels: torch.Tensor,            # [N] int labels
-    prop_mask: torch.Tensor,         # [N] bool: labels embedded into features
+    x: torch.Tensor,                 # [..., N, in_dim] node features
+    labels: torch.Tensor,            # [..., N] int labels
+    prop_mask: torch.Tensor,         # [..., N] bool: labels embedded into features
     agg_fn: Callable[[int, torch.Tensor], torch.Tensor],
+    *,
+    dropout_keep: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """The eval forward (``repro.core.model.forward`` with train=False)."""
+    """``repro.core.model.forward``. Training (dropout) when
+    ``dropout_keep`` is given: layer ``l`` keeps ``dropout_keep(l,
+    h.shape)`` (a bool mask drawn with probability ``1 - cfg.dropout``) and
+    scales the kept values by ``1 / (1 - cfg.dropout)``."""
     if cfg.model == "gat":
         raise NotImplementedError(L.GAT_NOT_PORTED)
     h = x
     if cfg.label_prop:
         emb = params["lp_embed"][labels.clamp(0, cfg.num_classes - 1).long()]
-        h = h + torch.where(prop_mask[:, None], emb, 0.0)
+        h = h + torch.where(prop_mask[..., None], emb, 0.0)
     for l, p in enumerate(params["layers"]):
         if cfg.norm == "layer":
             h = L.layer_norm(h, p["ln_scale"], p["ln_bias"])
+        if dropout_keep is not None and cfg.dropout > 0:
+            # A tensor divisor: CUDA divides by a host scalar as a multiply
+            # by its reciprocal, which can differ from the division.
+            keep = torch.full((), 1.0 - cfg.dropout, device=h.device)
+            h = torch.where(dropout_keep(l, tuple(h.shape)), h / keep, 0.0)
         z = agg_fn(l, h)
         h = L.apply_update(cfg.model, p, h, z)
         if l < cfg.num_layers - 1:
             h = torch.relu(h)
     return h
+
+
+def loss_and_metrics(
+    logits: torch.Tensor, labels: torch.Tensor, loss_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked softmax cross entropy. Returns (loss_sum, correct_sum, count),
+    summed over the node axis (one value per leading worker index)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    m = loss_mask.to(torch.float32)
+    loss_sum = torch.sum(nll * m, dim=-1)
+    correct = torch.sum((torch.argmax(logits, -1) == labels).to(torch.float32) * m,
+                        dim=-1)
+    return loss_sum, correct, torch.sum(m, dim=-1)

@@ -1,0 +1,449 @@
+"""Distributed full-batch GCN training (Fig 2), stacked on one device.
+
+Counterpart of ``repro/core/trainer.py`` as its ``mode="vmap"`` runs: the P
+workers of the distributed step sit on a leading axis of every tensor on
+one device (the card, or the CPU), and every collective is a tensor
+operation over that axis (``core.exchange``). One training step per epoch
+(full batch): masked-LP feature assembly -> per layer [LayerNorm ->
+dropout -> halo exchange ``issue`` -> local bucketed aggregation ->
+``finalize`` -> UPDATE] -> masked CE loss -> gradients -> AdamW.
+
+The gradient follows the JAX package's, including a factor. Under
+``vmap`` its ``psum(grads)`` (``trainer.py:534``) returns P times the
+gradient of the global mean loss (ROADMAP C-ref6), so the port
+backpropagates ``P * loss``. P is the worker count; for the paper's
+P = 8 the scaling is exact in fp32.
+
+Not ported yet (they raise): ``exec.mode`` values ``shard_map`` and
+``multiproc``, the checkpoint methods, ``lower_step``, and the
+single-device trainer (``train_gcn_single`` and friends).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import layers as L
+from repro_torch.core import model as M
+from repro_torch.core.exchange import (
+    DeviceHaloPlan,
+    DeviceHierPlan,
+    ExchangeSchedule,
+    _index_add,
+    _take,
+    stack_halo_plan,
+    stack_hier_plan,
+)
+from repro_torch.core.randomness import GeneratorRandomness
+from repro_torch.graph.remote import (
+    HierPartitionedGraph,
+    build_halo_plan,
+    build_hier_halo_plan,
+)
+from repro_torch.graph.structure import (
+    Graph,
+    bucketed_ell_from_csr,
+    stack_bucketed_ells,
+    transpose_csr,
+)
+from repro_torch.kernels.seg_aggregate import (
+    DeviceBucketedEll,
+    bucketed_aggregate,
+    device_bucketed,
+)
+from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_map
+
+# Hierarchical schedules default the slow inter-group wire to Int2 when the
+# base ``bits`` is fp32, as in the JAX package.
+HIER_INTER_BITS_DEFAULT = 2
+
+NOT_PORTED = "is not ported to PyTorch yet (ROADMAP queue A); use the JAX package"
+
+
+class WorkerData(NamedTuple):
+    """Per-worker arrays stacked on the worker axis (leading dim P), on
+    the device. Exactly one of ``plan`` (flat) / ``hier_plan`` is set."""
+
+    x: torch.Tensor           # [P, M, F] padded owned features
+    labels: torch.Tensor      # [P, M]
+    train_mask: torch.Tensor  # [P, M] (False on padding)
+    eval_mask: torch.Tensor   # [P, M]
+    owned_mask: torch.Tensor  # [P, M]
+    coo_src: torch.Tensor     # [P, nnz] local COO aggregation graph
+    coo_dst: torch.Tensor     # [P, nnz]
+    coo_w: torch.Tensor       # [P, nnz] (0 on padding)
+    plan: Optional[DeviceHaloPlan] = None
+    hier_plan: Optional[DeviceHierPlan] = None
+    # Degree-bucketed layout of the local graph (fwd + the reverse-graph
+    # layout driving the backward): the "ell" backend's hot path.
+    ell: Optional[DeviceBucketedEll] = None
+    ell_t: Optional[DeviceBucketedEll] = None
+
+
+@dataclass(frozen=True)
+class DistConfig:
+    """``repro.core.trainer.DistConfig``: the worker layout and the
+    exchange schedule's knobs."""
+
+    nparts: int
+    axis_name: str = "workers"
+    bits: int = 0            # wire format: 0=fp32, 2=Int2 (paper), 4, 8
+    cd: int = 1              # delayed-comm period (DistGNN baseline; 1 = sync)
+    lr: float = 0.01
+    agg_backend: str = "ell"
+    num_groups: int = 0
+    group_size: int = 0
+    node_axis: str = "node"
+    group_axis: str = "group"
+    intra_bits: Optional[int] = None
+    inter_bits: Optional[int] = None
+    intra_cd: Optional[int] = None
+    inter_cd: Optional[int] = None
+    overlap: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.agg_backend not in ("coo", "ell"):
+            raise ValueError(
+                f"agg_backend must be 'coo' or 'ell', got {self.agg_backend!r}")
+        if self.num_groups or self.group_size:
+            if self.num_groups < 1 or self.group_size < 1:
+                raise ValueError(
+                    "hierarchical DistConfig needs both num_groups >= 1 and "
+                    f"group_size >= 1, got {self.num_groups}x{self.group_size}")
+            if self.num_groups * self.group_size != self.nparts:
+                raise ValueError(
+                    f"num_groups * group_size ({self.num_groups}x"
+                    f"{self.group_size}) must equal nparts ({self.nparts})")
+        elif any(v is not None for v in (self.intra_bits, self.inter_bits,
+                                         self.intra_cd, self.inter_cd)):
+            raise ValueError(
+                "intra_/inter_ stage overrides need a hierarchical "
+                "DistConfig (num_groups/group_size)")
+        self.schedule()  # validate bits/cd via StageSpec
+
+    @property
+    def hierarchical(self) -> bool:
+        return self.num_groups >= 1 and self.group_size >= 1
+
+    def schedule(self) -> ExchangeSchedule:
+        """The composable exchange schedule this config describes."""
+        if self.hierarchical:
+            pick = lambda override, default: default if override is None else override
+            inter_default = self.bits or HIER_INTER_BITS_DEFAULT
+            return ExchangeSchedule.hierarchical(
+                self.num_groups, self.group_size,
+                intra_bits=pick(self.intra_bits, self.bits),
+                inter_bits=pick(self.inter_bits, inter_default),
+                intra_cd=pick(self.intra_cd, self.cd),
+                inter_cd=pick(self.inter_cd, self.cd),
+                node_axis=self.node_axis, group_axis=self.group_axis,
+                overlap=self.overlap)
+        return ExchangeSchedule.flat(self.nparts, bits=self.bits, cd=self.cd,
+                                     axis_name=self.axis_name,
+                                     overlap=self.overlap)
+
+    def sync_fp32(self) -> "DistConfig":
+        """This config with every stage forced to fresh fp32 (eval wire)."""
+        return dataclasses.replace(
+            self, bits=0, cd=1,
+            intra_bits=None, inter_bits=0 if self.hierarchical else None,
+            intra_cd=None, inter_cd=None)
+
+
+class HostWorkerData(NamedTuple):
+    """Partition-time worker arrays before device placement (numpy,
+    stacked on the worker axis), as in the JAX package."""
+
+    x: np.ndarray            # [P, M, F] f32
+    labels: np.ndarray       # [P, M] i32
+    train_mask: np.ndarray   # [P, M] bool
+    eval_mask: np.ndarray    # [P, M] bool
+    owned_mask: np.ndarray   # [P, M] bool
+    coo_src: np.ndarray      # [P, nnz_max] i64
+    coo_dst: np.ndarray      # [P, nnz_max] i64
+    coo_w: np.ndarray        # [P, nnz_max] f32
+    ell_stacked: list        # stack_bucketed_ells output (fwd)
+    ell_t_stacked: list      # stack_bucketed_ells output (reverse graph)
+    plan: Optional[object]   # graph.remote.HaloPlan (flat) or None
+    hier_plan: Optional[object]  # graph.remote.HierHaloPlan or None
+    max_owned: int
+
+
+def prepare_distributed_host(
+    g: Graph,
+    x: np.ndarray,
+    pg,
+    eval_mask: Optional[np.ndarray] = None,
+) -> HostWorkerData:
+    """Pad per-partition arrays to common shapes and stack them on the
+    worker axis (``repro.core.trainer.prepare_distributed_host``).
+
+    ``g`` must already carry edge weights; ``pg`` is a flat
+    ``PartitionedGraph`` or a ``HierPartitionedGraph``.
+    """
+    P = pg.nparts
+    M_ = pg.max_owned
+    F = x.shape[1]
+    train = g.train_mask if g.train_mask is not None else np.ones(g.num_nodes, bool)
+    if eval_mask is None:
+        eval_mask = ~train
+    labels = g.labels if g.labels is not None else np.zeros(g.num_nodes, np.int32)
+
+    xs = np.zeros((P, M_, F), np.float32)
+    ls = np.zeros((P, M_), np.int32)
+    tm = np.zeros((P, M_), bool)
+    em = np.zeros((P, M_), bool)
+    om = np.zeros((P, M_), bool)
+    nnz_max = max(max(c.nnz for c in pg.local_csr), 1)
+    cs = np.zeros((P, nnz_max), np.int64)
+    cd_ = np.zeros((P, nnz_max), np.int64)
+    cw = np.zeros((P, nnz_max), np.float32)
+    for p in range(P):
+        o = pg.owned[p]
+        n = len(o)
+        xs[p, :n] = x[o]
+        ls[p, :n] = labels[o]
+        tm[p, :n] = train[o]
+        em[p, :n] = eval_mask[o]
+        om[p, :n] = True
+        c = pg.local_csr[p]
+        dst = np.repeat(np.arange(c.num_rows), np.diff(c.indptr))
+        cs[p, :c.nnz] = c.indices
+        cd_[p, :c.nnz] = dst
+        cw[p, :c.nnz] = c.weights
+
+    base = pg.base if isinstance(pg, HierPartitionedGraph) else pg
+    local_ell = base.local_ell or [bucketed_ell_from_csr(c)
+                                   for c in pg.local_csr]
+    local_ell_t = base.local_ell_t or [
+        bucketed_ell_from_csr(transpose_csr(c)) for c in pg.local_csr]
+
+    common = dict(
+        x=xs, labels=ls, train_mask=tm, eval_mask=em, owned_mask=om,
+        coo_src=cs, coo_dst=cd_, coo_w=cw,
+        ell_stacked=stack_bucketed_ells(local_ell),
+        ell_t_stacked=stack_bucketed_ells(local_ell_t),
+        max_owned=M_,
+    )
+    if isinstance(pg, HierPartitionedGraph):
+        return HostWorkerData(**common, plan=None,
+                              hier_plan=build_hier_halo_plan(pg))
+    # Pad wire rows per pair to a multiple of the quant row group (4).
+    R = pg.stats.padded_rows_per_pair
+    R = max(4, (R + 3) // 4 * 4)
+    return HostWorkerData(**common, plan=build_halo_plan(pg, rows_per_pair=R),
+                          hier_plan=None)
+
+
+def lift_worker_data(hwd: HostWorkerData, device="cuda") -> WorkerData:
+    """Copy a HostWorkerData onto ``device``, stacked over the worker axis."""
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    common = dict(
+        x=t(hwd.x, torch.float32), labels=t(hwd.labels, torch.int64),
+        train_mask=t(hwd.train_mask, torch.bool),
+        eval_mask=t(hwd.eval_mask, torch.bool),
+        owned_mask=t(hwd.owned_mask, torch.bool),
+        coo_src=t(hwd.coo_src, torch.int64),
+        coo_dst=t(hwd.coo_dst, torch.int64),
+        coo_w=t(hwd.coo_w, torch.float32),
+        ell=device_bucketed(hwd.ell_stacked, device=device, squeeze=False),
+        ell_t=device_bucketed(hwd.ell_t_stacked, device=device, squeeze=False),
+    )
+    if hwd.hier_plan is not None:
+        return WorkerData(**common, hier_plan=stack_hier_plan(
+            hwd.hier_plan, num_rows=hwd.max_owned, device=device))
+    return WorkerData(**common, plan=stack_halo_plan(
+        hwd.plan, num_rows=hwd.max_owned, device=device))
+
+
+def _local_aggregate(h: torch.Tensor, wd: WorkerData,
+                     agg_backend: str = "coo") -> torch.Tensor:
+    """Local (intra-partition) aggregation of every worker.
+
+    ``"ell"`` runs the degree-bucketed aggregation kernel, whose backward
+    is the same kernel over the reverse-graph layout. ``"coo"`` is the
+    edge-order scatter-add kept for parity checks.
+    """
+    if agg_backend == "ell" and wd.ell is not None:
+        return bucketed_aggregate(h, wd.ell, ell_t=wd.ell_t)
+    return _index_add(torch.zeros_like(h), wd.coo_dst,
+                      wd.coo_w[..., None] * _take(h, wd.coo_src))
+
+
+def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
+                  prop_mask, randomness=None, epoch: Optional[int] = None,
+                  train: bool = False, halo_cache=None, schedule=None):
+    """Every worker's forward, sequenced through the schedule's
+    LayerProgram: per layer, ``issue`` -> local aggregation ->
+    ``finalize``.
+
+    ``randomness`` (with ``epoch``) supplies the dropout masks when
+    ``train`` and the stochastic-rounding uniforms of quantized stages.
+    ``halo_cache`` is the per-layer stale receive buffers of the delayed
+    stages; without it the schedule runs fully sync (the eval semantics).
+    Returns (logits [P, M, C], new_halo_cache).
+    """
+    sched = schedule if schedule is not None else dc.schedule()
+    if halo_cache is None and sched.uses_cache:
+        sched = sched.as_sync()
+    prog = sched.layer_program(wd, agg_backend=dc.agg_backend)
+    new_cache: List = []
+    dev = wd.x.device
+
+    def agg_fn(l: int, h: torch.Tensor) -> torch.Tensor:
+        noise = None
+        if randomness is not None:
+            noise = lambda si, backward, shape: randomness.quant_uniform(
+                epoch, l, si, backward, shape, dev)
+        entry = halo_cache[l] if halo_cache is not None else None
+        inflight = prog.issue(h, noise, cache_entry=entry, epoch=epoch)
+        local = _local_aggregate(h, wd, dc.agg_backend)
+        agg, ne = prog.finalize(local, inflight)
+        new_cache.append(ne)
+        return agg
+
+    keep = None
+    if train:
+        keep = lambda l, shape: randomness.dropout_keep(
+            epoch, l, shape, 1.0 - cfg.dropout, dev)
+    logits = M.forward(params, cfg, wd.x, wd.labels, prop_mask, agg_fn,
+                       dropout_keep=keep)
+    return logits, new_cache
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device without a
+    card, and keeps the dense products in full fp32 on the card."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r}: no CUDA card is available (pass "
+                "device='cpu' to run the plain PyTorch path)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+class DistributedTrainer:
+    """Drives the stacked per-worker step (the JAX package's vmap mode).
+
+    ``params`` defaults to ``M.init_params`` drawn from ``seed``;
+    ``randomness`` to :class:`~repro_torch.core.randomness.GeneratorRandomness`
+    seeded from ``seed``. Both live on ``wd``'s device.
+    """
+
+    def __init__(self, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
+                 mode: str = "vmap", seed: int = 0, params: Optional[Dict] = None,
+                 randomness=None):
+        if mode != "vmap":
+            raise NotImplementedError(f"exec.mode={mode!r} {NOT_PORTED}")
+        if cfg.model == "gat":
+            raise NotImplementedError(L.GAT_NOT_PORTED)
+        self.cfg, self.dc, self.wd, self.mode = cfg, dc, wd, mode
+        self.device = wd.x.device
+        self.schedule = dc.schedule()
+        if params is None:
+            params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        self.params = M.to_device(params, self.device)
+        self.opt_state = adamw_init(self.params)
+        self.randomness = randomness if randomness is not None else \
+            GeneratorRandomness(seed)
+        self.epoch = 0
+        self.use_cache = self.schedule.uses_cache
+        self._cache = None
+        if dc.hierarchical and wd.hier_plan is None:
+            raise ValueError(
+                "hierarchical DistConfig needs WorkerData built from a "
+                "HierPartitionedGraph (wd.hier_plan is None)")
+        if not dc.hierarchical and wd.plan is None:
+            raise ValueError(
+                "WorkerData carries a hierarchical plan; set num_groups/"
+                "group_size on DistConfig (wd.plan is None)")
+        if dc.agg_backend == "ell" and wd.ell is None:
+            raise ValueError("agg_backend='ell' needs the bucketed layout in "
+                             "WorkerData (wd.ell is None)")
+        if wd.x.shape[0] != dc.nparts:
+            raise ValueError(f"WorkerData stacks {wd.x.shape[0]} workers, "
+                             f"DistConfig has nparts={dc.nparts}")
+
+    def _ensure_cache(self) -> None:
+        """Lazily zero-fill the schedule-owned halo cache (epoch 0 always
+        refreshes, so zeros are never read as data)."""
+        if self.use_cache and self._cache is None:
+            dims = self.cfg.dims()[: self.cfg.num_layers]
+            self._cache = self.schedule.init_cache(self.wd, dims)
+
+    def train_step(self):
+        """One step of every worker: (grads, metrics, new halo cache).
+
+        The grads are those of ``P * loss`` (module docstring, C-ref6)."""
+        cfg, wd, e = self.cfg, self.wd, self.epoch
+        self._ensure_cache()
+        if cfg.label_prop:
+            sel = self.randomness.lp_select(e, tuple(wd.train_mask.shape),
+                                            cfg.lp_rate, self.device)
+            prop_mask, loss_mask = M.lp_masks(sel, wd.train_mask)
+        else:
+            prop_mask, loss_mask = torch.zeros_like(wd.train_mask), wd.train_mask
+        params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
+        logits, cache = _dist_forward(
+            params, cfg, self.dc, wd, prop_mask, self.randomness, e, train=True,
+            halo_cache=self._cache, schedule=self.schedule)
+        ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
+        gcnt = cnt.sum()
+        loss = ls.sum() / torch.clamp(gcnt, min=1.0)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(self.dc.nparts * loss, leaves, allow_unused=True)
+        it = iter(g if g is not None else torch.zeros_like(p)
+                  for g, p in zip(grads, leaves))
+        grads = tree_map(lambda _: next(it), params)
+        metrics = {"loss": loss.detach(),
+                   "train_acc": correct.sum() / torch.clamp(gcnt, min=1.0)}
+        return grads, metrics, (cache if self.use_cache else None)
+
+    def train_epoch(self) -> Dict[str, float]:
+        grads, metrics, cache = self.train_step()
+        if self.use_cache:
+            self._cache = cache
+        self.params, self.opt_state = adamw_update(
+            grads, self.opt_state, self.params, self.dc.lr)
+        self.epoch += 1
+        return {k: float(v) for k, v in metrics.items()}
+
+    def evaluate(self) -> float:
+        """Eval accuracy: every train label propagated, fresh fp32 halo."""
+        wd = self.wd
+        prop = wd.train_mask if self.cfg.label_prop else torch.zeros_like(wd.train_mask)
+        with torch.no_grad():
+            logits, _ = _dist_forward(self.params, self.cfg, self.dc.sync_fp32(),
+                                      wd, prop)
+            _, correct, cnt = M.loss_and_metrics(logits, wd.labels, wd.eval_mask)
+        return float(correct.sum()) / max(float(cnt.sum()), 1.0)
+
+    def fit(self, epochs: int, log_every: int = 0) -> List[Dict]:
+        history = []
+        for _ in range(epochs):
+            m = self.train_epoch()
+            if log_every and (self.epoch % log_every == 0 or self.epoch == epochs):
+                m["eval_acc"] = self.evaluate()
+                m["epoch"] = self.epoch
+                history.append(m)
+        return history
+
+    # -- not ported yet ----------------------------------------------------
+
+    def train_state(self, *args, **kwargs):
+        raise NotImplementedError(f"checkpointing {NOT_PORTED}")
+
+    save_train_state = restore_train_state_from = train_state
+
+    def lower_step(self, *args, **kwargs):
+        raise NotImplementedError(f"lower_step (the dry-run hook) {NOT_PORTED}")

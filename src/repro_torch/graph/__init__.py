@@ -1,5 +1,5 @@
-# Host-side graph preprocessing (NumPy), copied from repro.graph. The halo
-# plans (repro.graph.remote / mvc) arrive with the training slice.
+# Host-side graph preprocessing (NumPy), copied from repro.graph, with the
+# halo plans (remote / mvc).
 from repro_torch.graph.structure import (
     CSR,
     BucketedEll,
@@ -15,6 +15,19 @@ from repro_torch.graph.partition import (
     partition_graph,
     partition_hierarchical,
     refine_bucket_max,
+)
+from repro_torch.graph.mvc import hopcroft_karp, min_vertex_cover_bipartite
+from repro_torch.graph.remote import (
+    CommStats,
+    GroupPairPlan,
+    HaloPlan,
+    HierHaloPlan,
+    HierPartitionedGraph,
+    PartitionedGraph,
+    build_halo_plan,
+    build_hier_halo_plan,
+    build_hierarchical_partitioned_graph,
+    build_partitioned_graph,
 )
 
 __all__ = [
@@ -32,4 +45,16 @@ __all__ = [
     "partition_graph",
     "partition_hierarchical",
     "refine_bucket_max",
+    "hopcroft_karp",
+    "min_vertex_cover_bipartite",
+    "CommStats",
+    "GroupPairPlan",
+    "HaloPlan",
+    "HierHaloPlan",
+    "HierPartitionedGraph",
+    "PartitionedGraph",
+    "build_halo_plan",
+    "build_hier_halo_plan",
+    "build_hierarchical_partitioned_graph",
+    "build_partitioned_graph",
 ]

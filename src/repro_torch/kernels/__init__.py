@@ -1,7 +1,9 @@
 # The paper's compute hot-spots as hand-written Hopper kernels:
-#   seg_aggregate — blocked-ELL neighbour aggregation (paper §4 index_add/SpMM)
-#                   over the degree-bucketed layout, forward (csrc/seg_aggregate.cu)
-# quant_pack / dequant_unpack arrive with the training slice.
+#   seg_aggregate  — blocked-ELL neighbour aggregation (paper §4 index_add/SpMM)
+#                    over the degree-bucketed layout, one graph or a stack of
+#                    workers, forward and backward (csrc/seg_aggregate.cu)
+#   quant_pack /   — fused stochastic quantize + bit-pack of the halo wire and
+#   dequant_unpack   its inverse (paper §7.3; csrc/quant_pack.cu)
 from repro_torch.kernels.ops import padded_device_bucketed
 from repro_torch.kernels.seg_aggregate import (
     DeviceBucketedEll,

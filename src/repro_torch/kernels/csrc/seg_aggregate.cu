@@ -9,6 +9,12 @@
 //
 // (rows == nullptr means rows[r] = r: the plain `seg_aggregate`).
 //
+// The same kernel is the backward of the bucketed aggregation
+// (`_bucketed_aggregate_bwd`, :218): over the reverse-graph layout `ell_t`
+// it computes A^T @ g. And it covers a stack of P workers' layouts in one
+// launch (blockIdx.z = worker, per-worker strides), as the JAX package's
+// vmap over the worker axis runs the Pallas kernel once per worker.
+//
 // What bounds it on this card: memory. Per output value it does K fused
 // multiply-adds on K gathered floats, far below the ~20 flop/byte at which
 // fp32 arithmetic would become the limit on an H100 (67 TFLOP/s over
@@ -24,9 +30,11 @@
 //   * the sum stays in a register over the whole K loop and each output
 //     value is stored once: no atomics, no shared-memory staging, and no
 //     read-modify-write of `out`;
-//   * the grid covers only the bucket's real rows (`n_rows`), so the
-//     padding rows a fixed shape class adds (rows = 0, w = 0) are neither
-//     read nor allowed to overwrite destination row 0.
+//   * the grid covers only the bucket's real rows (`n_rows`; per worker,
+//     `counts[p]`, since a stack pads every worker's bucket to the largest
+//     worker's count), so the padding rows a fixed shape class or a stack
+//     adds (rows = 0, w = 0) are neither read nor allowed to overwrite
+//     destination row 0.
 //
 // Determinism: every thread sums its K slots in the fixed order 0..K-1 in
 // fp32 and every destination row lies in exactly one bucket, so a row's
@@ -45,39 +53,67 @@ namespace {
 constexpr int kFeatTile = 32;  // threads along features: one warp
 constexpr int kRowTile = 8;    // warps per block: one destination row each
 
+// kStacked = false is one graph: the grid covers exactly its n_rows real
+// rows and every offset is the row's own. kStacked = true adds the worker
+// axis: worker p's real-row count is loaded from counts[p] and its arrays
+// start p strides in. The one-graph path (serving) thus carries neither the
+// counts load nor the per-worker offsets.
+template <bool kStacked>
 __global__ void __launch_bounds__(kFeatTile * kRowTile)
 seg_aggregate_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                      const float* __restrict__ w, const int* __restrict__ rows,
-                     float* __restrict__ out, int n_rows, int k, int f) {
+                     const int* __restrict__ counts, float* __restrict__ out,
+                     int n_rows, int bucket_rows, int k, int f,
+                     int64_t x_stride, int64_t out_stride) {
   const int r = blockIdx.x * kRowTile + threadIdx.y;
   const int c = blockIdx.y * kFeatTile + threadIdx.x;
-  if (r >= n_rows || c >= f) return;  // ragged row and feature edges
-  const int* idx_r = idx + static_cast<int64_t>(r) * k;
-  const float* w_r = w + static_cast<int64_t>(r) * k;
+  int64_t slot = r;
+  if constexpr (kStacked) {
+    const int p = blockIdx.z;
+    if (r >= __ldg(counts + p) || c >= f) return;  // this worker's padding rows
+    slot += static_cast<int64_t>(p) * bucket_rows;
+    x += p * x_stride;
+    out += p * out_stride;
+  } else {
+    if (r >= n_rows || c >= f) return;  // ragged row and feature edges
+  }
+  const int* idx_r = idx + slot * k;
+  const float* w_r = w + slot * k;
   float acc = 0.0f;
   for (int j = 0; j < k; ++j) {
     const int64_t src = __ldg(idx_r + j);
     acc = fmaf(__ldg(w_r + j), __ldg(x + src * f + c), acc);
   }
-  const int64_t dst = rows != nullptr ? __ldg(rows + r) : r;
+  const int64_t dst = rows != nullptr ? __ldg(rows + slot) : r;
   out[dst * f + c] = acc;
 }
 
 }  // namespace
 
-// x [N, f] f32, idx [n_rows, k] i32, w [n_rows, k] f32, rows [n_rows] i32 or
-// null, out [.., f] f32; all contiguous on the current device. Launches on
+// One graph (workers = 1, counts = null): x [N, f] f32, idx [bucket_rows, k]
+// i32, w [bucket_rows, k] f32, rows [bucket_rows] i32 or null, out [.., f] f32;
+// rows r < n_rows are computed. A stack of `workers` graphs: each array gains
+// a leading worker axis (x and out with `x_stride` / `out_stride` elements
+// per worker) and counts[p] (device i32) bounds worker p's real rows, n_rows
+// being the largest. All contiguous on the current device. Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int seg_aggregate_f32(const void* x, const void* idx, const void* w,
-                                 const void* rows, void* out, int n_rows,
-                                 int k, int f, void* stream) {
-  if (n_rows <= 0 || k <= 0 || f <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                 const void* rows, const void* counts, void* out,
+                                 int workers, int n_rows, int bucket_rows, int k,
+                                 int f, long long x_stride, long long out_stride,
+                                 void* stream) {
+  if (workers <= 0 || workers > 65535 || n_rows <= 0 || n_rows > bucket_rows ||
+      k <= 0 || f <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kFeatTile, kRowTile);
   const dim3 grid((n_rows + kRowTile - 1) / kRowTile,
-                  (f + kFeatTile - 1) / kFeatTile);
-  seg_aggregate_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+                  (f + kFeatTile - 1) / kFeatTile, workers);
+  const auto kernel = counts != nullptr ? seg_aggregate_kernel<true>
+                                         : seg_aggregate_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(w), static_cast<const int*>(rows),
-      static_cast<float*>(out), n_rows, k, f);
+      static_cast<const int*>(counts), static_cast<float*>(out), n_rows,
+      bucket_rows, k, f, x_stride, out_stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """Fixed-shape device layouts for the serving path (counterpart of
-``repro/kernels/ops.py``; the quantization wrappers arrive with the
-training slice)."""
+``padded_device_bucketed`` in ``repro/kernels/ops.py``). The quantized
+wire calls ``kernels.quant_pack`` directly: its wrappers already pick the
+kernel or the plain version by device."""
 
 from __future__ import annotations
 

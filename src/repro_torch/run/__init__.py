@@ -1,5 +1,4 @@
-# RunSpec (copied from repro.run.spec) and the graph/partition stages of
-# the session builder that serving needs.
+# RunSpec (copied from repro.run.spec) and the session builder.
 from repro_torch.run.spec import (
     FEATURE_SOURCES,
     GRAPH_SOURCES,
@@ -11,7 +10,8 @@ from repro_torch.run.spec import (
     ScheduleSpec,
     SpecError,
 )
-from repro_torch.run.session import build_graph, build_partition
+from repro_torch.run.session import (Session, build_graph, build_partition,
+                                    build_session)
 
 __all__ = [
     "FEATURE_SOURCES",
@@ -22,7 +22,9 @@ __all__ = [
     "PartitionSpec",
     "RunSpec",
     "ScheduleSpec",
+    "Session",
     "SpecError",
     "build_graph",
     "build_partition",
+    "build_session",
 ]

@@ -25,10 +25,9 @@ benchmark artifacts so every recorded number names the exact
 configuration that produced it. ``with_overrides(["schedule.bits=2"])``
 is the ``--set`` layer every CLI shares.
 
-Port note: a copy of ``repro/run/spec.py``, held to it by
-``tests/test_torch_host.py``. ``ScheduleSpec.to_dist_config`` and the
-training ``Session`` arrive with the training slice; this package builds
-serving deployments from the spec (``repro_torch.serve.build_server``).
+``repro_torch.run.session.build_session(spec)`` turns a spec into a live
+:class:`~repro_torch.run.session.Session` (a copy of ``repro/run/spec.py``,
+held to it by ``tests/test_torch_host.py``).
 """
 
 from __future__ import annotations
@@ -267,6 +266,19 @@ class ScheduleSpec(_SubSpec):
                 raise SpecError(
                     f"schedule.{bad[0]} is a per-stage override of the "
                     "hierarchical schedule; set partition.groups as well")
+
+    def to_dist_config(self, partition: PartitionSpec, lr: float = 0.01):
+        """Lower onto the trainer's ``DistConfig``."""
+        from repro_torch.core import DistConfig
+        kw: Dict[str, Any] = dict(
+            nparts=partition.nparts, bits=self.bits, cd=self.cd,
+            lr=lr, agg_backend=self.agg_backend, overlap=self.overlap)
+        if partition.hierarchical:
+            kw.update(num_groups=partition.groups,
+                      group_size=partition.resolved_group_size(),
+                      intra_bits=self.intra_bits, inter_bits=self.inter_bits,
+                      intra_cd=self.intra_cd, inter_cd=self.inter_cd)
+        return DistConfig(**kw)
 
 
 @dataclass(frozen=True)

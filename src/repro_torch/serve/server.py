@@ -313,7 +313,7 @@ def build_server(spec: ServeSpec, device="cuda") -> GNNServer:
             "ported to PyTorch yet; serve fresh parameters "
             "(serve.ckpt='') or use the JAX package")
     g, x = build_graph(run)
-    part = build_partition(run, g)
+    part = build_partition(run, g).part
     cfg = run.model.to_gcn_config(run.graph, run.schedule)
     params = M.init_params(cfg, torch.Generator().manual_seed(run.exec.seed))
     return GNNServer(cfg, g, x, params, serve_cfg=spec.serve, part=part,

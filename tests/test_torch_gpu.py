@@ -91,3 +91,68 @@ def test_serving_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(a, b, **TOL)
     assert sa.launches > before
     assert on_card.check_parity([3, 4, 5])
+
+
+# -- the training slice ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("f", [100, 256, 47])
+def test_quant_kernels_equal_plain_bitwise(cuda, bits, f):
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels.ref import dequant_unpack_ref, quant_pack_ref
+
+    rng = np.random.default_rng(bits * 100 + f)
+    x = torch.from_numpy(rng.normal(size=(1024, f)).astype(np.float32)).to(cuda)
+    x[4:8] = 0.5
+    u = torch.rand((1024, f), device=cuda)
+    before = (qp.pack_launches, qp.unpack_launches)
+    got = qp.quant_pack(x, u, bits)
+    want = quant_pack_ref(x, u, bits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(qp.dequant_unpack(*got, bits, f), dequant_unpack_ref(*want, bits, f))
+    assert (qp.pack_launches, qp.unpack_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_stacked_aggregation_and_backward(cuda):
+    from repro_torch.graph.structure import stack_bucketed_ells, transpose_csr
+
+    rng = np.random.default_rng(4)
+    ells, ells_t = [], []
+    for p in range(3):                       # rectangular: 40 sources -> 24 rows
+        src = rng.integers(0, 40, 150 + 60 * p)
+        dst = rng.integers(0, 24, src.shape[0])
+        dst[: 40 * p] = 3                     # a hub row in some workers only
+        w = rng.uniform(0.1, 1.0, src.shape[0]).astype(np.float32)
+        csr = coo_to_csr(src, dst, w, 24, 40)
+        ells.append(bucketed_ell_from_csr(csr))
+        ells_t.append(bucketed_ell_from_csr(transpose_csr(csr)))
+    lay = sa.device_bucketed(stack_bucketed_ells(ells), device=cuda, squeeze=False)
+    lay_t = sa.device_bucketed(stack_bucketed_ells(ells_t), device=cuda, squeeze=False)
+    x = torch.randn((3, 40, 100), device=cuda, requires_grad=True)
+    before = (sa.launches, sa.backward_launches)
+    y = sa.bucketed_aggregate(x, lay, 24, ell_t=lay_t)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert sa.launches - before[0] == sum(1 for b in lay.buckets if b.n)
+    assert sa.backward_launches - before[1] == sum(1 for b in lay_t.buckets if b.n)
+    torch.testing.assert_close(y, sa.bucketed_forward_ref(x.detach(), lay, 24), **TOL)
+    torch.testing.assert_close(dx, sa.bucketed_forward_ref(g, lay_t, 40), **TOL)
+
+
+@pytest.mark.gpu
+def test_training_on_card_matches_cpu(cuda):
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.core import GeneratorRandomness
+    from repro_torch.run import RunSpec, build_session
+
+    spec = RunSpec.from_dict(TRAIN_FLAGSHIP).with_overrides(["schedule.inter_bits=0"])
+    losses = []
+    for dev in (cuda, "cpu"):
+        s = build_session(spec, device=dev,
+                          randomness=GeneratorRandomness(0, draw_device="cpu"))
+        losses.append([s.train_epoch()["loss"] for _ in range(2)])
+    np.testing.assert_allclose(losses[0], losses[1], **TOL)

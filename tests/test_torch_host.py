@@ -2,6 +2,7 @@
 and the guard that keeps JAX and ``repro`` out of the port."""
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -12,13 +13,21 @@ import numpy as np
 import pytest
 
 import repro.run.session as jsession
+from repro.core.exchange import host_recv_bucketed as j_host_recv_bucketed
+from repro.core.trainer import prepare_distributed_host as j_prepare_host
 from repro.graph import structure as jst
+from repro.graph.remote import build_halo_plan as j_build_halo_plan
+from repro.run.spec import RunSpec as JRunSpec
 from repro.kernels.ops import padded_device_bucketed as j_padded
 from repro.serve import ServeSpec as JServeSpec
 from repro.serve import extract_ego as j_extract_ego
 from repro.serve.server import ShapeLadder as JShapeLadder
 
 import repro_torch.run.session as tsession
+from repro_torch.core.exchange import host_recv_bucketed as t_host_recv_bucketed
+from repro_torch.core.trainer import prepare_distributed_host as t_prepare_host
+from repro_torch.graph.remote import build_halo_plan as t_build_halo_plan
+from repro_torch.run.spec import RunSpec as TRunSpec
 from repro_torch.configs.serve_products_paper import OVERRIDES, serve_products_paper
 from repro_torch.graph import structure as tst
 from repro_torch.kernels.ops import padded_device_bucketed as t_padded
@@ -31,8 +40,9 @@ SRC = ROOT / "src"
 
 # Modules the port carries over verbatim, imports pointing into repro_torch.
 VERBATIM = ["utils/registry.py", "graph/structure.py", "graph/generators.py",
-            "graph/partition.py", "run/sources.py", "serve/spec.py",
-            "serve/egonet.py", "serve/cache.py", "configs/graphsage_paper.py"]
+            "graph/partition.py", "graph/mvc.py", "graph/remote.py",
+            "run/sources.py", "serve/spec.py", "serve/egonet.py", "serve/cache.py",
+            "configs/graphsage_paper.py"]
 
 
 def _run_json(graph=None, partition=None):
@@ -106,8 +116,8 @@ def test_partition_labels_equal(partition):
     gj, _ = jsession.build_graph(js.run)
     gt, _ = tsession.build_graph(ts.run)
     pj = np.asarray(jsession.build_partition(js.run, gj).part)
-    pt = tsession.build_partition(ts.run, gt)
-    assert np.array_equal(pj, pt) and pt.dtype == np.int32
+    pt = tsession.build_partition(ts.run, gt).part
+    assert np.array_equal(pj, pt) and pt.dtype == pj.dtype
 
 
 def _graph_pair():
@@ -207,6 +217,89 @@ def test_serve_products_paper_is_flagship_with_overrides():
     assert spec.serve.resolved_fanouts(3) == [15, 10, 5]
 
 
+# -- the halo plans ------------------------------------------------------------
+
+
+def _assert_arrays_equal(a, b, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and np.array_equal(a, b), what
+
+
+def _assert_plan_equal(pj, pt, what):
+    for name in ("nparts", "rows_per_pair"):
+        assert getattr(pj, name) == getattr(pt, name), (what, name)
+    for name in ("send_gather_idx", "send_gather_mask", "pre_src", "pre_slot",
+                 "pre_weight", "recv_row", "recv_dst", "recv_weight"):
+        _assert_arrays_equal(getattr(pj, name), getattr(pt, name), (what, name))
+
+
+def _assert_stacked_ells_equal(sj, st, what):
+    assert len(sj) == len(st), what
+    for a, b in zip(sj, st):
+        assert a[0] == b[0], what
+        for x, y in zip(a[1:], b[1:]):
+            _assert_arrays_equal(x, y, what)
+
+
+@pytest.mark.parametrize("partition", [
+    {"nparts": 4},
+    {"nparts": 8, "groups": 2},
+    {"nparts": 8, "groups": 2, "strategy": "pre", "refine": "bucket-max"},
+])
+def test_halo_plans_equal(partition):
+    """``graph/remote.py``'s copy builds the reference's plans array for
+    array: CommStats, the flat HaloPlan or both levels of the HierHaloPlan,
+    the stacked worker arrays and the bucketed receive layouts."""
+    run = _run_json(partition=partition)
+    js, ts = JRunSpec.from_dict(run), TRunSpec.from_dict(run)
+    gj, xj = jsession.build_graph(js)
+    gt, xt = tsession.build_graph(ts)
+    pgj, pgt = jsession.build_partition(js, gj), tsession.build_partition(ts, gt)
+    assert type(pgj).__name__ == type(pgt).__name__
+    sj, st = pgj.stats, pgt.stats
+    for name in ("nparts", "vanilla", "pre", "post", "hybrid", "selected",
+                 "padded_rows_per_pair", "num_groups", "group_size", "intra_rows",
+                 "inter_rows", "flat_inter_rows"):
+        assert getattr(sj, name) == getattr(st, name), name
+    _assert_arrays_equal(sj.per_pair_hybrid, st.per_pair_hybrid, "per_pair_hybrid")
+    assert sj.as_dict() == st.as_dict()
+    hj, ht = j_prepare_host(gj, xj, pgj), t_prepare_host(gt, xt, pgt)
+    for name in ("x", "labels", "train_mask", "eval_mask", "owned_mask", "coo_src",
+                 "coo_dst", "coo_w"):
+        _assert_arrays_equal(getattr(hj, name), getattr(ht, name), name)
+    assert hj.max_owned == ht.max_owned
+    _assert_stacked_ells_equal(hj.ell_stacked, ht.ell_stacked, "local ell")
+    _assert_stacked_ells_equal(hj.ell_t_stacked, ht.ell_t_stacked, "local ell_t")
+    if "groups" in partition:
+        assert (hj.hier_plan.num_groups, hj.hier_plan.group_size) == (
+            ht.hier_plan.num_groups, ht.hier_plan.group_size)
+        levels = [("intra", hj.hier_plan.intra, ht.hier_plan.intra),
+                  ("inter", hj.hier_plan.inter, ht.hier_plan.inter)]
+    else:
+        levels = [("flat", hj.plan, ht.plan)]
+        _assert_plan_equal(j_build_halo_plan(pgj), t_build_halo_plan(pgt), "unpadded")
+    for what, pj, pt in levels:
+        _assert_plan_equal(pj, pt, what)
+        for a, b in zip(j_host_recv_bucketed(pj, hj.max_owned),
+                        t_host_recv_bucketed(pt, ht.max_owned)):
+            _assert_stacked_ells_equal(a, b, (what, "recv"))
+
+
+def test_to_dist_config_equal():
+    from repro.core import DistConfig as JDistConfig
+
+    for partition, schedule in (({"nparts": 4}, {"bits": 2, "cd": 3}),
+                                ({"nparts": 8, "groups": 2},
+                                 {"inter_bits": 2, "inter_cd": 2, "overlap": True})):
+        run = dict(_run_json(partition=partition), schedule=schedule)
+        js, ts = JRunSpec.from_dict(run), TRunSpec.from_dict(run)
+        dj = js.schedule.to_dist_config(js.partition, lr=0.05)
+        dt = ts.schedule.to_dist_config(ts.partition, lr=0.05)
+        assert isinstance(dj, JDistConfig)
+        assert dataclasses.asdict(dj) == dataclasses.asdict(dt)
+        assert dj.schedule().describe() == dt.schedule().describe()
+
+
 # -- the import guard -------------------------------------------------------
 
 _PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -232,7 +325,7 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_port_serve_loads_without_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.parity; "
+            "repro_torch.launch.train, repro_torch.run, repro_torch.parity; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

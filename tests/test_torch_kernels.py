@@ -126,3 +126,20 @@ def test_cpu_path_counts_no_launch_and_checks_inputs():
     with pytest.raises(ValueError):
         sa.seg_aggregate(torch.from_numpy(x).t(), torch.from_numpy(idx),
                          torch.from_numpy(w))
+
+
+def test_bucketed_aggregate_refuses_grad_without_reverse_layout():
+    """Without ``ell_t`` the aggregation has no backward; an ``x`` that needs
+    a gradient is refused on every device, so a caller cannot pass the CPU
+    tests and lose the gradient on the card."""
+    rng = np.random.default_rng(7)
+    src, dst, w = _coo(rng, 40, 24, 0)
+    ct = coo_to_csr(src, dst, w, 24, 40)
+    lay = sa.device_bucketed(stack_bucketed_ells([bucketed_ell_from_csr(ct)]),
+                             device="cpu")
+    x = torch.from_numpy(rng.normal(size=(40, 8)).astype(np.float32)).requires_grad_()
+    with pytest.raises(ValueError, match="ell_t"):
+        sa.bucketed_aggregate(x, lay, 24)
+    with torch.no_grad():
+        assert sa.bucketed_aggregate(x, lay, 24).shape == (24, 8)
+    assert sa.bucketed_aggregate(x.detach(), lay, 24).grad_fn is None

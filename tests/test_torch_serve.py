@@ -46,7 +46,7 @@ def _pair(*over):
     cfg = tspec.run.model.to_gcn_config(tspec.run.graph, tspec.run.schedule)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jserver.params))
     tserver = GNNServer(cfg, g, x, params, serve_cfg=tspec.serve,
-                        part=build_partition(tspec.run, g), device="cpu")
+                        part=build_partition(tspec.run, g).part, device="cpu")
     return jserver, tserver
 
 
