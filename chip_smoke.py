@@ -40,10 +40,15 @@ the result line is printed:
              graph, 8 workers stacked, hierarchical 2x4, Int2 inter wire,
              inter_cd=2). The stacked seg_aggregate and its backward are held
              to their plain versions on the session's own layouts (rtol =
-             atol = 1e-5); then the launch counts are reset, 4 epochs run
+             atol = 1e-5). On all six stacked layouts (local graph, intra and
+             inter receive scatters, and the reverse of each), at F in (100,
+             256, 47), two launches must give the same bits and agree with
+             the plain version; each layout is timed at F = 256 beside the
+             plain version, torch.sparse.mm and the bound, with one launch
+             per call. Then the launch counts are reset, 4 epochs run
              (refresh and stale epochs of the inter cache, twice) and the
-             model is evaluated; every kernel must have launched. A fifth,
-             profiled epoch gives the device's busy share and top operations.
+             model is evaluated; every kernel must have launched. A fifth, profiled epoch gives the
+             device's busy share and top operations.
 8. train parity — the small flagship spec (vmap) for 3 epochs on the card
              and on the CPU, randomness drawn on the CPU and copied to both:
              fp32 inter wire within 1e-5, Int2 inter wire within 1e-3.
@@ -249,8 +254,12 @@ def operator_numbers(name, x, lay, csr, out_rows, n_real) -> dict:
     from repro_torch.kernels import seg_aggregate as sa
 
     f = x.shape[1]
+    before = sa.launches
     err = max_err(sa.bucketed_aggregate(x, lay, out_rows),
                   sa.bucketed_forward_ref(x, lay, out_rows))
+    per_call = sa.launches - before
+    if per_call != 1:
+        fail(f"{name}: {per_call} kernel launches for one aggregation call")
     # torch.sparse.mm on the same operator (CSR x dense): a yardstick only.
     crow = torch.zeros(out_rows + 1, dtype=torch.int64)
     crow[1: csr.num_rows + 1] = torch.from_numpy(csr.indptr[1:].astype("int64"))
@@ -274,10 +283,11 @@ def operator_numbers(name, x, lay, csr, out_rows, n_real) -> dict:
     r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-         "max_abs_err": err, "call_ms": call_ms}
+         "max_abs_err": err, "call_ms": call_ms,
+         "launches_per_call": per_call}
     print(f"[kernels] {name}: F={f} out_rows={out_rows} src_rows={n_real} "
           f"real_rows={rows} slots={slots} edges={edges} "
-          f"launches={sum(1 for b in lay.buckets if b.n)} "
+          f"launches per call={per_call} "
           f"| device time per call: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
           f"torch.sparse.mm {library_ms:.5f} ms (max diff {lib_err:.2e}); bound "
           f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B) | per call with host "
@@ -539,9 +549,44 @@ def _block_diag_csr(lay, out_rows, in_rows, dev):
     return a.coalesce().to_sparse_csr()
 
 
+def train_layouts(session) -> list:
+    """The six stacked layouts of the training path: (name, layout, source
+    rows, output rows, whether it is a backward layout)."""
+    wd = session.wd
+    m = wd.x.shape[1]
+    out = [("local", wd.ell, m, m, False), ("local_t", wd.ell_t, m, m, True)]
+    for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
+        wire = plan.send_gather_idx.shape[1]
+        out += [(f"{name} receive", plan.recv_ell, wire, m, False),
+                (f"{name} receive_t", plan.recv_ell_t, m, wire, True)]
+    return out
+
+
+def check_repeats(layouts, dev) -> float:
+    """On every layout at F in (100, 256, 47): two launches bit for bit, and
+    the kernel against the plain version."""
+    import torch
+
+    from repro_torch.kernels import seg_aggregate as sa
+
+    worst = 0.0
+    for name, lay, n_in, n_out, _ in layouts:
+        p = lay.buckets[0].idx.shape[0]
+        for f in (100, 256, 47):
+            x = torch.randn((p, n_in, f), device=dev)
+            a = sa._bucketed_forward(x, lay, n_out)
+            if not torch.equal(a, sa._bucketed_forward(x, lay, n_out)):
+                fail(f"{name} F={f}: two launches differ")
+            worst = max(worst, max_err(a, sa.bucketed_forward_ref(x, lay, n_out)))
+        print(f"[train] {name}: two launches agree bit for bit at F in (100, 256, 47)",
+              flush=True)
+    return worst
+
+
 def stacked_numbers(name, lay, in_rows, out_rows, f, dev, backward) -> dict:
-    """Kernel vs plain on one stacked layout; times, bound and a library
-    call (torch.sparse.mm over the block-diagonal matrix)."""
+    """Kernel vs plain on one stacked layout; the kernel's, the plain
+    version's and a library call's (torch.sparse.mm over the block-diagonal
+    matrix) times, and the bound."""
     import torch
 
     from repro_torch.kernels import seg_aggregate as sa
@@ -549,14 +594,20 @@ def stacked_numbers(name, lay, in_rows, out_rows, f, dev, backward) -> dict:
     p = lay.buckets[0].idx.shape[0]
     x = torch.randn((p, in_rows, f), device=dev)
     kernel = lambda: sa._bucketed_forward(x, lay, out_rows, backward=backward)
+    before = sa.launches + sa.backward_launches
+    y = kernel()
+    per_call = sa.launches + sa.backward_launches - before
+    if per_call != 1:
+        fail(f"{name}: {per_call} kernel launches for one aggregation call")
     plain = lambda: sa.bucketed_forward_ref(x, lay, out_rows)
-    err = max_err(kernel(), plain())
+    err = max_err(y, plain())
     a = _block_diag_csr(lay, out_rows, in_rows, dev)
     xf = x.reshape(p * in_rows, f)
     library = lambda: torch.sparse.mm(a, xf)
-    lib_err = float((library().reshape(p, out_rows, f) - kernel()).abs().max())
-    ms, plain_ms, library_ms = (device_ms(fn, f"{name}: {what}") for fn, what in (
-        (kernel, "kernel"), (plain, "plain"), (library, "torch.sparse.mm")))
+    lib_err = float((library().reshape(p, out_rows, f) - y).abs().max())
+    ms = device_ms(kernel, f"{name}: kernel")
+    plain_ms = device_ms(plain, f"{name}: plain")
+    library_ms = device_ms(library, f"{name}: torch.sparse.mm")
     slots = sum(int(b.counts.sum()) * b.idx.shape[-1] for b in lay.buckets)
     real_rows = sum(int(b.counts.sum()) for b in lay.buckets)
     nbytes, edges = aggregation_bytes(lay, in_rows, p * out_rows * f, f)
@@ -565,10 +616,9 @@ def stacked_numbers(name, lay, in_rows, out_rows, f, dev, backward) -> dict:
     r = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-         "max_abs_err": err}
+         "launches_per_call": per_call, "max_abs_err": err}
     print(f"[train] {name}: {p} workers, F={f}, {in_rows}->{out_rows} rows, real rows "
-          f"{real_rows}, slots {slots}, edges {edges}, "
-          f"{sum(1 for b in lay.buckets if b.n)} launches | "
+          f"{real_rows}, slots {slots}, edges {edges}, {per_call} launch per call | "
           f"max abs err {err:.3e} | device time per call: kernel {ms:.5f} ms, plain "
           f"{plain_ms:.5f} ms, torch.sparse.mm {library_ms:.5f} ms (max diff "
           f"{lib_err:.2e}); bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes} B)",
@@ -578,8 +628,8 @@ def stacked_numbers(name, lay, in_rows, out_rows, f, dev, backward) -> dict:
 
 def check_train_kernels(session, dev) -> dict:
     """The stacked aggregation and its backward on the session's own
-    layouts (local graph, rectangular inter-stage receive scatter), and the
-    autograd path through them, against the plain versions."""
+    layouts, and the autograd path through them, against the plain
+    versions; two launches against each other; times of every layout."""
     import torch
 
     from repro_torch.kernels import seg_aggregate as sa
@@ -602,13 +652,13 @@ def check_train_kernels(session, dev) -> dict:
           f"reverse layout) agree with the plain versions on the local and the "
           f"inter receive layouts at F in (100, 256, 47): max abs err {worst:.3e} "
           f"(rtol=atol={TOL})", flush=True)
-    fwd = stacked_numbers("seg_aggregate forward, local graph", wd.ell, m, m, 256, dev,
-                          backward=False)
-    bwd = stacked_numbers("seg_aggregate backward, local graph (ell_t)", wd.ell_t, m, m,
-                          256, dev, backward=True)
-    for r in (fwd, bwd):
+    layouts = train_layouts(session)
+    worst = max(worst, check_repeats(layouts, dev))
+    numbers = {name: stacked_numbers(name, lay, n_in, n_out, 256, dev, bwd)
+               for name, lay, n_in, n_out, bwd in layouts}
+    for r in (numbers["local"], numbers["local_t"]):
         r["max_abs_err"] = max(r["max_abs_err"], worst)
-    return {"forward": fwd, "backward": bwd}
+    return {"forward": numbers["local"], "backward": numbers["local_t"]}
 
 
 TRAIN_EPOCHS = 4
@@ -725,7 +775,7 @@ def main() -> None:
           f"{', '.join(p.name for p in libs)}", flush=True)
     for name, log in build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     worst = check_kernels(dev)
@@ -773,12 +823,14 @@ def main() -> None:
                        else "src/repro_torch/kernels/csrc/seg_aggregate.cu"),
             "replaces": replaces, "launches": launches[name],
             **{k: nums[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}})
+                                    "bound_by", "library_ms",
+                                    "launches_per_call") if k in nums}})
     kernels[0]["serve"] = {"launches": served["launches"],
                            "max_abs_err": max(worst, *(v["max_abs_err"]
                                                        for v in timings.values())),
                            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}}
+                                                "bound_by", "library_ms",
+                                                "launches_per_call")}}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

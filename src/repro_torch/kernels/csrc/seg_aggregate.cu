@@ -2,44 +2,63 @@
 //
 // Replaces the TPU Pallas kernel of src/repro/kernels/seg_aggregate.py:
 // the kernel body `_seg_aggregate_kernel` (:67) driven by `seg_aggregate`
-// (:91), together with the per-bucket scatter `out.at[b.rows].add(...)` of
-// `_bucketed_forward` (:194), which this kernel fuses into its store:
+// (:91), together with the per-bucket scatter `out.at[b.rows].add(...)`
+// (:194) of `_bucketed_forward` (:185), which this kernel fuses into its
+// store:
 //
 //     out[rows[r], f] = sum_{k=0..K-1} w[r, k] * x[idx[r, k], f]
 //
-// (rows == nullptr means rows[r] = r: the plain `seg_aggregate`).
+// (rows == nullptr means rows[r] = r: the plain `seg_aggregate`). Over the
+// reverse-graph layout `ell_t` the same kernel is the backward
+// (`_bucketed_aggregate_bwd`, :218): A^T @ g. A layout is one graph or a
+// stack of P workers' graphs (the JAX package's vmap over the worker axis).
 //
-// The same kernel is the backward of the bucketed aggregation
-// (`_bucketed_aggregate_bwd`, :218): over the reverse-graph layout `ell_t`
-// it computes A^T @ g. And it covers a stack of P workers' layouts in one
-// launch (blockIdx.z = worker, per-worker strides), as the JAX package's
-// vmap over the worker axis runs the Pallas kernel once per worker.
+// One launch covers every bucket of a layout: the wrapper passes a table of
+// up to kMaxBuckets buckets by value (pointers, K, padded and real rows).
 //
-// What bounds it on this card: memory. Per output value it does K fused
-// multiply-adds on K gathered floats, far below the ~20 flop/byte at which
-// fp32 arithmetic would become the limit on an H100 (67 TFLOP/s over
-// 3.35 TB/s). The bytes it must move are the index and weight arrays of the
-// bucket's real rows, the source rows it gathers, and the output rows.
-// What the design does about that:
-//   * a warp covers 32 consecutive features of one destination row, so
-//     each gathered source row is read as 128-byte coalesced segments and
-//     the row's idx/w entries are one broadcast load per warp;
-//   * source rows are re-read by every destination that names them; at the
-//     serving shapes the whole source matrix (a few MB) stays in the 50 MB
-//     L2, so the repeats cost L2 bandwidth rather than device memory;
-//   * the sum stays in a register over the whole K loop and each output
-//     value is stored once: no atomics, no shared-memory staging, and no
-//     read-modify-write of `out`;
-//   * the grid covers only the bucket's real rows (`n_rows`; per worker,
-//     `counts[p]`, since a stack pads every worker's bucket to the largest
-//     worker's count), so the padding rows a fixed shape class or a stack
-//     adds (rows = 0, w = 0) are neither read nor allowed to overwrite
-//     destination row 0.
+// What bounds it on this card: bytes, not arithmetic. Per output value it
+// does one fused multiply-add per gathered float, far below the ~20
+// flop/byte at which fp32 arithmetic would become the limit on an H100
+// (67 TFLOP/s over 3.35 TB/s). The HBM bytes are small (the index and
+// weight arrays, each source row once, the output once); what a gather
+// moves is much more: every slot re-reads a whole source row (each
+// local-graph source row is named by ~19 edges), served from the 50 MB L2
+// when the sources fit there. So the kernel keeps many gathers in flight
+// and skips the ones that add nothing:
 //
-// Determinism: every thread sums its K slots in the fixed order 0..K-1 in
-// fp32 and every destination row lies in exactly one bucket, so a row's
-// result depends only on that row's slots. A served row therefore equals
-// the same row of the full-batch forward bit for bit.
+//   * A block is a tile of rows of one bucket of one worker; the block
+//     finds its bucket by a scan over the table's tile offsets.
+//   * Each thread owns 4 consecutive features (one float4 load per slot
+//     when F % 4 == 0 and the rows are 16-byte aligned, scalar loads
+//     otherwise); the K loop loads 4 slots' idx and w (one 16-byte load
+//     each when K % 4 == 0) and issues their 4 gathers before the
+//     multiply-adds.
+//   * Slots with w == 0 (the layouts pad rows to their bucket's K with
+//     (idx 0, w 0) slots: 30% of the local graph's) are not gathered.
+//
+// Its time is the L2's rate for the gathered rows. (The TPU kernel kept
+// each worker's source slab resident in VMEM instead; a shared-memory slab
+// measured slower than this gather on every layout of the training path
+// on the H100, PERF.md.)
+//
+// The weight of a slot is the same for all threads of its row, so the
+// w == 0 branch does not diverge within a row. For finite x skipping the
+// slot changes no value: fmaf(0, x, acc) == acc (acc is never -0: it
+// starts at +0 and a sum that cancels exactly rounds to +0). An infinite
+// or NaN x in a padded slot gives NaN in the plain version (0 * inf) and
+// not in the kernel.
+//
+// Order of the sums, and so the bits of the result, do not depend on the
+// grid or a bucket's row count: every output value starts at +0.0f and
+// takes one __fmaf_rn per slot with w != 0, in slot order 0..K-1, with no
+// atomics; every destination row lies in exactly one bucket and is stored
+// once. So two launches agree bit for bit, and a served row equals the
+// same row of the full-batch forward bit for bit.
+//
+// Padding rows (a stack pads every worker's bucket to the largest worker's
+// count; a shape class pads further) point at row 0 with zero weights; the
+// kernel covers only each worker's real rows (counts[p], or n for one
+// graph), so they are neither read nor stored over a real row 0.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -50,70 +69,208 @@
 
 namespace {
 
-constexpr int kFeatTile = 32;  // threads along features: one warp
-constexpr int kRowTile = 8;    // warps per block: one destination row each
+constexpr int kMaxBuckets = 16;
+constexpr int kGatherThreads = 256;  // lanes * rows_per_tile <= this
 
-// kStacked = false is one graph: the grid covers exactly its n_rows real
-// rows and every offset is the row's own. kStacked = true adds the worker
-// axis: worker p's real-row count is loaded from counts[p] and its arrays
-// start p strides in. The one-graph path (serving) thus carries neither the
-// counts load nor the per-worker offsets.
-template <bool kStacked>
-__global__ void __launch_bounds__(kFeatTile * kRowTile)
-seg_aggregate_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                     const float* __restrict__ w, const int* __restrict__ rows,
-                     const int* __restrict__ counts, float* __restrict__ out,
-                     int n_rows, int bucket_rows, int k, int f,
-                     int64_t x_stride, int64_t out_stride) {
-  const int r = blockIdx.x * kRowTile + threadIdx.y;
-  const int c = blockIdx.y * kFeatTile + threadIdx.x;
-  int64_t slot = r;
-  if constexpr (kStacked) {
-    const int p = blockIdx.z;
-    if (r >= __ldg(counts + p) || c >= f) return;  // this worker's padding rows
-    slot += static_cast<int64_t>(p) * bucket_rows;
-    x += p * x_stride;
-    out += p * out_stride;
+struct Bucket {
+  const int* idx;     // [P, bucket_rows, k] (one graph: [bucket_rows, k])
+  const float* w;     // same shape
+  const int* rows;    // [P, bucket_rows] destination rows, or null: rows[r] = r
+  const int* counts;  // [P] real rows per worker, or null: n (one graph)
+  int k;
+  int bucket_rows;
+  int n;              // most real rows of any worker
+  int tile_start;     // the bucket's first tile (blockIdx.x)
+};
+
+struct Table {
+  Bucket b[kMaxBuckets];
+  int nb;             // buckets in use (each with n > 0)
+  int f;              // features per row
+  int lanes;          // threads per row, 4 features each
+  int rows_per_tile;  // rows per block
+  long long x_stride;    // elements per worker of x
+  long long out_stride;  // elements per worker of out
+};
+
+// The table's bucket i, read with constant offsets only (a select per
+// field), so the by-value parameter is never copied to local memory.
+__device__ __forceinline__ Bucket pick(const Table& t, int i) {
+  Bucket b = t.b[0];
+#pragma unroll
+  for (int j = 1; j < kMaxBuckets; ++j)
+    if (j == i) b = t.b[j];
+  return b;
+}
+
+__device__ __forceinline__ int real_rows(const Bucket& b, int p) {
+  return b.counts != nullptr ? __ldg(b.counts + p) : b.n;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
+  acc.x = __fmaf_rn(w, v.x, acc.x);
+  acc.y = __fmaf_rn(w, v.y, acc.y);
+  acc.z = __fmaf_rn(w, v.z, acc.z);
+  acc.w = __fmaf_rn(w, v.w, acc.w);
+}
+
+// 4 features at p (valid: how many of them lie inside the row, >= 1).
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* p, int valid) {
+  if constexpr (kVec) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   } else {
-    if (r >= n_rows || c >= f) return;  // ragged row and feature edges
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    v.x = __ldg(p);
+    if (valid > 1) v.y = __ldg(p + 1);
+    if (valid > 2) v.z = __ldg(p + 2);
+    if (valid > 3) v.w = __ldg(p + 3);
+    return v;
   }
-  const int* idx_r = idx + slot * k;
-  const float* w_r = w + slot * k;
-  float acc = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const int64_t src = __ldg(idx_r + j);
-    acc = fmaf(__ldg(w_r + j), __ldg(x + src * f + c), acc);
+}
+
+// Slots j..j+3 of a row: one 16-byte load each of idx and w when the
+// bucket's slots allow it (K % 4 == 0 and both arrays 16-byte aligned).
+__device__ __forceinline__ void load_slots(const int* idx_r, const float* w_r, int j,
+                                           bool vec, int (&s)[4], float (&wt)[4]) {
+  if (vec) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(idx_r + j));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(w_r + j));
+    s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
+    wt[0] = b.x, wt[1] = b.y, wt[2] = b.z, wt[3] = b.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s[u] = __ldg(idx_r + j + u);
+      wt[u] = __ldg(w_r + j + u);
+    }
   }
-  const int64_t dst = rows != nullptr ? __ldg(rows + slot) : r;
-  out[dst * f + c] = acc;
+}
+
+__device__ __forceinline__ bool vec_slots(const Bucket& b) {
+  return (b.k & 3) == 0 &&
+         ((reinterpret_cast<uintptr_t>(b.idx) | reinterpret_cast<uintptr_t>(b.w)) & 15) == 0;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* p, const float4& v, int valid) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    if (valid > 1) p[1] = v.y;
+    if (valid > 2) p[2] = v.z;
+    if (valid > 3) p[3] = v.w;
+  }
+}
+
+// blockIdx.x is a tile of rows_per_tile rows of one bucket of
+// one worker (tiles of bucket i: [tile_start, tile_start + ceil(n / rows) *
+// P), worker-major); blockIdx.y a slice of lanes * 4 features.
+template <bool kVec>
+__global__ void __launch_bounds__(kGatherThreads)
+seg_aggregate_gather(const float* __restrict__ x, float* __restrict__ out, const Table t) {
+  const int tile = blockIdx.x;
+  int bi = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxBuckets; ++j)
+    if (j < t.nb && tile >= t.b[j].tile_start) bi = j;
+  const Bucket b = pick(t, bi);
+  const int row_tiles = (b.n + t.rows_per_tile - 1) / t.rows_per_tile;
+  const int local = tile - b.tile_start;
+  const int p = local / row_tiles;
+  const int r = (local - p * row_tiles) * t.rows_per_tile + threadIdx.x / t.lanes;
+  const int f = t.f;
+  const int f4 = 4 * (blockIdx.y * t.lanes + threadIdx.x % t.lanes);
+  if (threadIdx.x >= t.lanes * t.rows_per_tile || f4 >= f) return;
+  if (r >= real_rows(b, p)) return;  // this worker's padding rows
+  const int valid = f - f4;
+  const int64_t slot = static_cast<int64_t>(p) * b.bucket_rows + r;
+  const float* xp = x + p * t.x_stride + f4;
+  const int* idx_r = b.idx + slot * b.k;
+  const float* w_r = b.w + slot * b.k;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool vslots = vec_slots(b);
+  float4 acc = zero;
+  int j = 0;
+  for (; j + 4 <= b.k; j += 4) {
+    int s[4];
+    float wt[4];
+    load_slots(idx_r, w_r, j, vslots, s, wt);
+    if constexpr (kVec) {  // the 4 gathers in flight before the multiply-adds
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = wt[u] != 0.f ? load4<true>(xp + static_cast<int64_t>(s[u]) * f, valid) : zero;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (wt[u] != 0.f) fma4(acc, wt[u], v[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (wt[u] != 0.f)
+          fma4(acc, wt[u], load4<false>(xp + static_cast<int64_t>(s[u]) * f, valid));
+    }
+  }
+  for (; j < b.k; ++j) {
+    const float wj = __ldg(w_r + j);
+    if (wj != 0.f)
+      fma4(acc, wj, load4<kVec>(xp + static_cast<int64_t>(__ldg(idx_r + j)) * f, valid));
+  }
+  const int64_t dst = b.rows != nullptr ? __ldg(b.rows + slot) : r;
+  store4<kVec>(out + p * t.out_stride + dst * f + f4, acc, valid);
 }
 
 }  // namespace
 
-// One graph (workers = 1, counts = null): x [N, f] f32, idx [bucket_rows, k]
-// i32, w [bucket_rows, k] f32, rows [bucket_rows] i32 or null, out [.., f] f32;
-// rows r < n_rows are computed. A stack of `workers` graphs: each array gains
-// a leading worker axis (x and out with `x_stride` / `out_stride` elements
-// per worker) and counts[p] (device i32) bounds worker p's real rows, n_rows
-// being the largest. All contiguous on the current device. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int seg_aggregate_f32(const void* x, const void* idx, const void* w,
-                                 const void* rows, const void* counts, void* out,
-                                 int workers, int n_rows, int bucket_rows, int k,
-                                 int f, long long x_stride, long long out_stride,
-                                 void* stream) {
-  if (workers <= 0 || workers > 65535 || n_rows <= 0 || n_rows > bucket_rows ||
-      k <= 0 || f <= 0)
+// One aggregation over `nb` buckets in one launch.
+//   x    [P, .., f] f32 (one graph: P = 1), x_stride elements per worker
+//   out  [P, .., f] f32, out_stride elements per worker; rows not named by
+//        any bucket are left as they are (the wrapper zero-fills out)
+//   ptrs nb * 4 addresses: idx, w, rows (or 0), counts (or 0) per bucket
+//   dims nb * 4 ints: k, bucket_rows, n, tile_start per bucket
+//   grid `tiles` x ceil(ceil(f / 4) / lanes) blocks of lanes * rows_per_tile
+//        threads
+//   vec  1: f % 4 == 0 and x, out 16-byte aligned (float4 loads and stores)
+// All arrays contiguous on the current device. Launches on `stream` and
+// returns a CUDA error code (0 on success).
+extern "C" int seg_aggregate_f32(const void* x, void* out, const long long* ptrs,
+                                 const int* dims, int nb, int workers, int f,
+                                 long long x_stride, long long out_stride, int lanes,
+                                 int rows_per_tile, int tiles, int vec, void* stream) {
+  if (nb <= 0 || nb > kMaxBuckets || workers <= 0 || f <= 0 || lanes <= 0 ||
+      rows_per_tile <= 0 || lanes * rows_per_tile > kGatherThreads || tiles <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kFeatTile, kRowTile);
-  const dim3 grid((n_rows + kRowTile - 1) / kRowTile,
-                  (f + kFeatTile - 1) / kFeatTile, workers);
-  const auto kernel = counts != nullptr ? seg_aggregate_kernel<true>
-                                         : seg_aggregate_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<const int*>(rows),
-      static_cast<const int*>(counts), static_cast<float*>(out), n_rows,
-      bucket_rows, k, f, x_stride, out_stride);
+  Table t{};
+  for (int i = 0; i < nb; ++i) {
+    Bucket& b = t.b[i];
+    b.idx = reinterpret_cast<const int*>(ptrs[4 * i]);
+    b.w = reinterpret_cast<const float*>(ptrs[4 * i + 1]);
+    b.rows = reinterpret_cast<const int*>(ptrs[4 * i + 2]);
+    b.counts = reinterpret_cast<const int*>(ptrs[4 * i + 3]);
+    b.k = dims[4 * i];
+    b.bucket_rows = dims[4 * i + 1];
+    b.n = dims[4 * i + 2];
+    b.tile_start = dims[4 * i + 3];
+    if (b.idx == nullptr || b.w == nullptr || b.k <= 0 || b.n <= 0 ||
+        b.n > b.bucket_rows || (workers > 1 && b.counts == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  t.nb = nb;
+  t.f = f;
+  t.lanes = lanes;
+  t.rows_per_tile = rows_per_tile;
+  t.x_stride = x_stride;
+  t.out_stride = out_stride;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto xf = static_cast<const float*>(x);
+  const auto of = static_cast<float*>(out);
+  const int chunks = (f + 3) / 4;
+  const dim3 grid(tiles, (chunks + lanes - 1) / lanes);
+  const dim3 block(lanes * rows_per_tile);
+  if (vec)
+    seg_aggregate_gather<true><<<grid, block, 0, s>>>(xf, of, t);
+  else
+    seg_aggregate_gather<false><<<grid, block, 0, s>>>(xf, of, t);
   return static_cast<int>(cudaGetLastError());
 }

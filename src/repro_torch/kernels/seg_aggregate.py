@@ -3,21 +3,24 @@
 Counterpart of ``repro/kernels/seg_aggregate.py``. There the TPU runs a
 Pallas kernel per degree bucket and XLA scatters each bucket's rows into
 the output (``out.at[b.rows].add``). Here ``csrc/seg_aggregate.cu`` does
-both in one launch per bucket: it sums ``w[r, k] * x[idx[r, k]]`` over k
-in a fixed order in fp32 and stores the row straight into ``out[rows[r]]``
-(see the source's header for the design and what bounds it).
+all buckets of a layout in one launch: it sums ``w[r, k] * x[idx[r, k]]``
+over k in a fixed order in fp32 and stores each row straight into
+``out[rows[r]]`` (see the source's header for the design and what bounds
+it).
 
 A layout is one graph (``[Rb]`` rows, ``[Rb, K]`` slots) or a stack of P
 workers' graphs (``[P, Rb]``, ``[P, Rb, K]``, the form
-``stack_bucketed_ells`` pads to common shapes); the kernel covers all P
-workers of a bucket in one launch (``blockIdx.z``).
+``stack_bucketed_ells`` pads to common shapes).
 
 Because the kernel *stores* rather than adds, each bucket carries its count
 of real rows: the layouts pad buckets with rows that point at row 0 with
 zero weights, and a store of such a row would overwrite row 0.
-:class:`DeviceEllBucket` ``n`` is the most real rows of any worker (the
-grid's extent) and, for a stack, ``counts`` each worker's own (the kernel
-skips ``r >= counts[p]``).
+:class:`DeviceEllBucket` ``n`` is the most real rows of any worker and, for
+a stack, ``counts`` each worker's own (the kernel skips ``r >= counts[p]``).
+
+The bucket table of a layout, and the launch table of each width it
+meets, are built on first use and cached on the
+:class:`DeviceBucketedEll` (:func:`launch_table`).
 
 :func:`bucketed_aggregate` is differentiable when given the reverse-graph
 layout ``ell_t``: aggregation is linear, ``out = A @ x``, so its gradient
@@ -28,13 +31,14 @@ Dispatch is by device: a CUDA tensor goes to the kernel (or the wrapper
 raises), a CPU tensor to the plain version (``ref.seg_aggregate_ref`` and
 ``index_add_``, the counterpart of ``.at[].add``). Nothing falls back.
 ``launches`` and ``backward_launches`` count kernel launches in the forward
-and in the backward, so a run can show that its main path went through the
-kernel.
+and in the backward (one per aggregation call with real rows), so a run
+can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -45,6 +49,9 @@ from repro_torch.kernels import ref
 
 launches = 0            # forward kernel launches since the last reset
 backward_launches = 0   # backward (reverse-layout) launches since the last reset
+
+MAX_BUCKETS = 16        # buckets one launch takes (csrc kMaxBuckets)
+GATHER_THREADS = 256    # threads per block (csrc kGatherThreads)
 
 
 class DeviceEllBucket(NamedTuple):
@@ -57,10 +64,14 @@ class DeviceEllBucket(NamedTuple):
     counts: Optional[torch.Tensor] = None  # [P] int32 real rows per worker (stacks)
 
 
-class DeviceBucketedEll(NamedTuple):
-    """Device form of ``graph.structure.BucketedEll``."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceBucketedEll:
+    """Device form of ``graph.structure.BucketedEll``. The kernel's tables
+    are cached in ``_tables`` (the layout's tensors are constants)."""
 
     buckets: Tuple[DeviceEllBucket, ...]
+    _tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
 
 def _real_rows(rows: np.ndarray, w: np.ndarray) -> int:
@@ -104,59 +115,157 @@ def device_bucketed(stacked: Sequence, device="cuda",
     return DeviceBucketedEll(tuple(buckets))
 
 
-def _check(x, idx, w, rows=None):
-    tensors = {"x": (x, torch.float32), "idx": (idx, torch.int32),
-               "w": (w, torch.float32)}
-    if rows is not None:
-        tensors["rows"] = (rows, torch.int32)
-    for name, (t, dtype) in tensors.items():
-        if t.device != x.device:
-            raise ValueError(f"seg_aggregate: {name} on {t.device}, x on {x.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"seg_aggregate: {name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"seg_aggregate: {name} must be contiguous")
+def _check_tensor(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"seg_aggregate: {name} on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"seg_aggregate: {name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"seg_aggregate: {name} must be contiguous")
+
+
+def _check(x, idx, w):
+    for name, t, dtype in (("x", x, torch.float32), ("idx", idx, torch.int32),
+                           ("w", w, torch.float32)):
+        _check_tensor(name, t, dtype, x.device)
     lead = x.dim() - 2
     if lead not in (0, 1) or idx.dim() != 2 + lead or idx.shape != w.shape \
             or idx.shape[:lead] != x.shape[:lead]:
         raise ValueError(f"seg_aggregate: shapes x {tuple(x.shape)}, idx "
                          f"{tuple(idx.shape)}, w {tuple(w.shape)}")
-    if rows is not None and rows.shape != idx.shape[:-1]:
-        raise ValueError(f"seg_aggregate: rows {tuple(rows.shape)} for "
-                         f"idx {tuple(idx.shape)}")
+
+
+# -- the kernel's tables ---------------------------------------------------------
+
+
+class BucketTable(NamedTuple):
+    """The buckets with real rows, as one launch takes them (validated)."""
+
+    device: torch.device
+    workers: int                    # P; 1 for one graph
+    stacked: bool
+    buckets: Tuple[DeviceEllBucket, ...]
+    ptrs: ctypes.Array              # 4 addresses per bucket: idx, w, rows, counts
+
+
+class LaunchTable(NamedTuple):
+    """One launch's shape for a layout and a width."""
+
+    lanes: int                      # threads per row, 4 features each
+    rows_per_tile: int              # rows per block
+    tile_start: Tuple[int, ...]     # each bucket's first tile
+    tiles: int                      # blocks along x
+    dims: ctypes.Array              # 4 ints per bucket: k, bucket_rows, n, tile_start
+
+
+def gather_tiles(ns: Sequence[int], workers: int, f: int):
+    """The kernel's tiling: ``(lanes, rows_per_tile, tile_start, tiles)``.
+
+    A thread covers 4 features, ``lanes`` threads a row (``ceil(F / 4)``,
+    at most a block), a block ``rows_per_tile`` rows of one bucket of one
+    worker; bucket i's tiles start at ``tile_start[i]``, worker-major, with
+    ``ceil(n_i / rows_per_tile)`` tiles per worker (the kernel drops the
+    rows of a tile at or past ``counts[p]``).
+    """
+    lanes = min(-(-f // 4), GATHER_THREADS)
+    rows_per_tile = GATHER_THREADS // lanes
+    start, tiles = [], 0
+    for n in ns:
+        start.append(tiles)
+        tiles += -(-n // rows_per_tile) * workers
+    return lanes, rows_per_tile, tuple(start), tiles
+
+
+def _bucket_table(ell: DeviceBucketedEll) -> BucketTable:
+    """The layout's buckets with real rows, validated once and cached."""
+    table = ell._tables.get("buckets")
+    if table is not None:
+        return table
+    live = tuple(b for b in ell.buckets if b.n)
+    if len(live) > MAX_BUCKETS:
+        raise ValueError(f"seg_aggregate: {len(live)} buckets with real rows; "
+                         f"one launch takes at most {MAX_BUCKETS}")
+    stacked = any(b.counts is not None for b in ell.buckets)
+    device = ell.buckets[0].idx.device if ell.buckets else None
+    workers = ell.buckets[0].idx.shape[0] if stacked else 1
+    for b in ell.buckets:
+        if (b.counts is not None) != stacked:
+            raise ValueError("seg_aggregate: a layout mixes stacked and one-graph buckets")
+        lead = 1 if stacked else 0
+        for name, t, dtype in (("idx", b.idx, torch.int32), ("w", b.w, torch.float32),
+                               ("rows", b.rows, torch.int32)):
+            _check_tensor(name, t, dtype, device)
+        if b.idx.dim() != 2 + lead or b.w.shape != b.idx.shape \
+                or b.rows.shape != b.idx.shape[:-1] \
+                or (stacked and b.idx.shape[0] != workers) \
+                or not 0 <= b.n <= b.idx.shape[-2] or b.idx.shape[-1] < 1:
+            raise ValueError(f"seg_aggregate: bucket shapes idx {tuple(b.idx.shape)}, "
+                             f"w {tuple(b.w.shape)}, rows {tuple(b.rows.shape)}, n {b.n}")
+        if stacked:
+            _check_tensor("counts", b.counts, torch.int32, device)
+            if b.counts.shape != (workers,):
+                raise ValueError(f"seg_aggregate: counts {tuple(b.counts.shape)} "
+                                 f"for {workers} workers")
+    ptrs = (ctypes.c_longlong * (4 * len(live)))(*[
+        t.data_ptr() if t is not None else 0
+        for b in live for t in (b.idx, b.w, b.rows, b.counts)])
+    table = BucketTable(device, workers, stacked, live, ptrs)
+    ell._tables["buckets"] = table
+    return table
+
+
+def _dims(buckets: Sequence[DeviceEllBucket], tile_start: Sequence[int]) -> ctypes.Array:
+    return (ctypes.c_int * (4 * len(buckets)))(*[
+        v for b, t in zip(buckets, tile_start)
+        for v in (b.idx.shape[-1], b.idx.shape[-2], b.n, t)])
+
+
+def _launch_table(buckets: BucketTable, f: int) -> LaunchTable:
+    lanes, rows_per_tile, start, tiles = gather_tiles(
+        [b.n for b in buckets.buckets], buckets.workers, f)
+    if tiles >= 2**31:
+        raise ValueError("seg_aggregate: more tiles than a grid holds")
+    return LaunchTable(lanes, rows_per_tile, start, tiles, _dims(buckets.buckets, start))
+
+
+def launch_table(ell: DeviceBucketedEll, f: int) -> LaunchTable:
+    """The launch of ``ell`` over rows ``f`` features wide; built once per
+    width and cached on ``ell``."""
+    table = ell._tables.get(f)
+    if table is None:
+        table = _launch_table(_bucket_table(ell), f)
+        ell._tables[f] = table
+    return table
+
+
+# -- the launch --------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point of ``csrc/seg_aggregate.cu``, built on first use."""
+def _library():
+    """``csrc/seg_aggregate.cu``'s library with its C signatures, built on
+    first use."""
     from repro_torch.kernels.build import load
 
-    fn = load("seg_aggregate").seg_aggregate_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load("seg_aggregate")
+    lib.seg_aggregate_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.seg_aggregate_f32.restype = ctypes.c_int
+    return lib
 
 
-def _launch(x, idx, w, rows, counts, out, n_rows: int) -> None:
-    """One kernel launch over ``n_rows`` rows of every worker, on the
-    current stream. ``x`` [P, N, F] / ``out`` [P, M, F] for a stack of P
-    (``counts`` [P] real rows each), else [N, F] / [M, F]."""
-    if x.device.type != "cuda":
-        raise ValueError(f"seg_aggregate kernel needs CUDA tensors, got {x.device}")
-    fn = _kernel()
-    workers = x.shape[0] if x.dim() == 3 else 1
-    bucket_rows, k = idx.shape[-2], idx.shape[-1]
+def _launch(x: torch.Tensor, out: torch.Tensor, buckets: BucketTable,
+            table: LaunchTable) -> None:
+    """One launch over every bucket of the table, on the current stream."""
     f = x.shape[-1]
-    if (max(x.numel(), idx.numel(), out.numel()) >= 2**31 or n_rows > bucket_rows
-            or workers > 65535):
-        raise ValueError("seg_aggregate: sizes beyond the kernel's int32 range")
-    err = fn(x.data_ptr(), idx.data_ptr(), w.data_ptr(),
-             rows.data_ptr() if rows is not None else None,
-             counts.data_ptr() if counts is not None else None, out.data_ptr(),
-             workers, n_rows, bucket_rows, k, f,
-             x.numel() // workers, out.numel() // workers,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    vec = f % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    err = _library().seg_aggregate_f32(
+        x.data_ptr(), out.data_ptr(), ctypes.addressof(buckets.ptrs),
+        ctypes.addressof(table.dims), len(buckets.buckets), buckets.workers, f,
+        x.numel() // buckets.workers, out.numel() // buckets.workers, table.lanes,
+        table.rows_per_tile, table.tiles, int(vec),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"seg_aggregate kernel launch failed: CUDA error {err}")
 
@@ -171,13 +280,16 @@ def seg_aggregate(x: torch.Tensor, ell_idx: torch.Tensor,
         raise ValueError("seg_aggregate: one graph (x [N, F]) only")
     if x.device.type == "cpu":
         return ref.seg_aggregate_ref(x, ell_idx, ell_w)
-    out = torch.empty((ell_idx.shape[0], x.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    if ell_idx.shape[0] and ell_idx.shape[1] and x.shape[1]:
-        _launch(x, ell_idx, ell_w, None, None, out, ell_idx.shape[0])
-        launches += 1
-    else:
-        out.zero_()
+    r, k = ell_idx.shape
+    out = torch.empty((r, x.shape[1]), dtype=x.dtype, device=x.device)
+    if not (r and k and x.shape[1] and x.shape[0]):
+        return out.zero_()
+    bucket = DeviceEllBucket(rows=None, idx=ell_idx, w=ell_w, n=r)
+    ptrs = (ctypes.c_longlong * 4)(ell_idx.data_ptr(), ell_w.data_ptr(), 0, 0)
+    lanes, rows_per_tile, start, tiles = gather_tiles([r], 1, x.shape[1])
+    table = LaunchTable(lanes, rows_per_tile, start, tiles, _dims([bucket], start))
+    _launch(x, out, BucketTable(x.device, 1, False, (bucket,), ptrs), table)
+    launches += 1
     return out
 
 
@@ -217,9 +329,9 @@ def bucketed_forward_ref(x: torch.Tensor, ell: DeviceBucketedEll,
 
 def _bucketed_forward(x: torch.Tensor, ell: DeviceBucketedEll, out_rows: int,
                       backward: bool = False) -> torch.Tensor:
-    """CUDA tensors: one kernel launch per bucket with real rows (all
-    workers of a stack at once), each storing its rows into ``out``
-    (zero-degree rows keep the zeros ``out`` starts with). CPU tensors:
+    """CUDA tensors: one kernel launch over every bucket with real rows (all
+    workers of a stack), storing each real row into ``out`` (zero-degree
+    rows keep the zeros ``out`` starts with). CPU tensors:
     :func:`bucketed_forward_ref`."""
     global launches, backward_launches
     if x.device.type == "cpu":
@@ -227,17 +339,20 @@ def _bucketed_forward(x: torch.Tensor, ell: DeviceBucketedEll, out_rows: int,
     x = x.contiguous()
     out = torch.zeros((*x.shape[:-2], out_rows, x.shape[-1]), dtype=x.dtype,
                       device=x.device)
-    for b in ell.buckets:
-        _check(x, b.idx, b.w, b.rows)
-        if x.dim() == 3 and b.counts is None:
-            raise ValueError("seg_aggregate: a stacked x needs a stacked layout "
-                             "(device_bucketed(..., squeeze=False))")
-        if b.n and x.shape[-1]:
-            _launch(x, b.idx, b.w, b.rows, b.counts, out, b.n)
-            if backward:
-                backward_launches += 1
-            else:
-                launches += 1
+    if not ell.buckets:
+        return out
+    buckets = _bucket_table(ell)
+    _check_tensor("x", x, torch.float32, buckets.device)
+    if x.dim() != 2 + buckets.stacked or (buckets.stacked and x.shape[0] != buckets.workers):
+        raise ValueError(f"seg_aggregate: x {tuple(x.shape)} for a "
+                         + (f"stack of {buckets.workers} graphs (device_bucketed(..., "
+                            f"squeeze=False))" if buckets.stacked else "one graph"))
+    if buckets.buckets and x.shape[-1] and x.shape[-2]:
+        _launch(x, out, buckets, launch_table(ell, x.shape[-1]))
+        if backward:
+            backward_launches += 1
+        else:
+            launches += 1
     return out
 
 

@@ -143,3 +143,136 @@ def test_bucketed_aggregate_refuses_grad_without_reverse_layout():
     with torch.no_grad():
         assert sa.bucketed_aggregate(x, lay, 24).shape == (24, 8)
     assert sa.bucketed_aggregate(x.detach(), lay, 24).grad_fn is None
+
+
+# -- the kernel's tables: one launch per aggregation -----------------------------
+#
+# The CUDA kernel cannot run here; what decides which rows it computes is
+# the tables built in Python. _gather_rows decodes them as
+# csrc/seg_aggregate.cu's seg_aggregate_gather does, line for line: the
+# bucket scan (:174-177), row_tiles, p and r (:179-182) and the padding
+# test (:186). A drift of the .cu from it shows on the card, where
+# tests/test_torch_gpu.py runs the kernel on the same layouts against the
+# plain version.
+
+
+def _counts(b, workers):
+    return b.counts.tolist() if b.counts is not None else [b.n] * workers
+
+
+def _workers(lay):
+    return lay.buckets[0].idx.shape[0] if lay.buckets[0].counts is not None else 1
+
+
+def _gather_rows(table, buckets, workers):
+    """(bucket, worker, row) -> times stored, over every tile of the grid."""
+    seen = {}
+    for tile in range(table.tiles):
+        bi = max(i for i, s in enumerate(table.tile_start) if s <= tile)
+        b = buckets[bi]
+        row_tiles = -(-b.n // table.rows_per_tile)
+        local = tile - table.tile_start[bi]
+        p, r0 = local // row_tiles, (local % row_tiles) * table.rows_per_tile
+        assert p < workers
+        for r in range(r0, r0 + table.rows_per_tile):
+            if r < _counts(b, workers)[p]:
+                seen[(bi, p, r)] = seen.get((bi, p, r), 0) + 1
+    return seen
+
+
+def _uneven_stack():
+    """Three workers; worker 1 has no row of degree 1 or 2, worker 2 a hub."""
+    rng = np.random.default_rng(11)
+    ells = []
+    for p in range(3):
+        src = rng.integers(0, 50, 200 + 150 * p)
+        dst = rng.integers(0, 30, src.shape[0])
+        if p == 2:
+            dst[:90] = 7
+        csr = coo_to_csr(src, dst, np.full(src.shape[0], 0.5, np.float32), 30, 50)
+        if p == 1:                                   # drop rows of degree <= 2
+            deg = csr.row_degrees()
+            keep = deg[dst] > 2
+            csr = coo_to_csr(src[keep], dst[keep], np.full(int(keep.sum()), 0.5,
+                                                           np.float32), 30, 50)
+        ells.append(bucketed_ell_from_csr(csr))
+    return sa.device_bucketed(stack_bucketed_ells(ells), device="cpu", squeeze=False), 50
+
+
+def _padded_graph():
+    """One graph at a serving shape class: the whole ladder, empty buckets
+    included, each padded past its real rows."""
+    rng = np.random.default_rng(3)
+    src, dst, w = _coo(rng, 40, 24, 70)
+    et = bucketed_ell_from_csr(coo_to_csr(src, dst, w, 24, 40))
+    return padded_device_bucketed(et, [(k, 64) for k in (1, 2, 4, 8, 16, 32, 64, 128)],
+                                  device="cpu"), 40
+
+
+@pytest.fixture(scope="module")
+def train_layouts():
+    """The six stacked layouts of the small flagship spec (the training
+    path's local graph, intra and inter receive scatters and their
+    reverses), a stack in which one worker has no row in a bucket, and a
+    padded one-graph layout as the server builds them."""
+    from repro_torch.configs.train_products_paper import FLAGSHIP
+    from repro_torch.run import RunSpec, build_session
+
+    wd = build_session(RunSpec.from_dict(FLAGSHIP), device="cpu").wd
+    m = wd.x.shape[1]
+    lays = {"local": (wd.ell, m), "local_t": (wd.ell_t, m)}
+    for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
+        lays[name] = (plan.recv_ell, plan.send_gather_idx.shape[1])
+        lays[name + "_t"] = (plan.recv_ell_t, m)
+    lays["uneven"] = _uneven_stack()
+    lays["padded"] = _padded_graph()
+    return lays
+
+
+LAYOUTS = ["local", "local_t", "intra", "intra_t", "inter", "inter_t", "uneven", "padded"]
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+@pytest.mark.parametrize("f", [256, 100, 47])
+def test_tables_cover_every_real_row_once(train_layouts, name, f):
+    lay, _ = train_layouts[name]
+    workers = _workers(lay)
+    live = [b for b in lay.buckets if b.n]
+    want = {(bi, p, r): 1 for bi, b in enumerate(live)
+            for p, c in enumerate(_counts(b, workers)) for r in range(c)}
+    if name == "uneven":
+        assert any(0 in _counts(b, workers) for b in live)
+    if name == "padded":
+        assert len(live) < len(lay.buckets)
+    table = sa.launch_table(lay, f)
+    assert list(table.dims) == [v for b, s in zip(live, table.tile_start)
+                                for v in (b.idx.shape[-1], b.idx.shape[-2], b.n, s)]
+    assert _gather_rows(table, live, workers) == want
+    chunks = -(-f // 4)                              # every feature once
+    assert table.lanes * table.rows_per_tile <= sa.GATHER_THREADS
+    assert table.lanes * -(-chunks // table.lanes) >= chunks \
+        > table.lanes * (-(-chunks // table.lanes) - 1)
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_tables_are_built_once_per_layout_and_width(train_layouts, name):
+    lay, _ = train_layouts[name]
+    buckets = sa._bucket_table(lay)
+    assert sa._bucket_table(lay) is buckets
+    assert buckets.buckets == tuple(b for b in lay.buckets if b.n)
+    assert list(buckets.ptrs) == [t.data_ptr() if t is not None else 0
+                                  for b in buckets.buckets
+                                  for t in (b.idx, b.w, b.rows, b.counts)]
+    tables = {f: sa.launch_table(lay, f) for f in (256, 100, 47)}
+    assert all(sa.launch_table(lay, f) is t for f, t in tables.items())
+    assert tables[256].lanes == 64 and tables[100].lanes == 25 and tables[47].lanes == 12
+
+
+def test_tables_refuse_more_than_16_buckets():
+    one = lambda: sa.DeviceEllBucket(rows=torch.tensor([1], dtype=torch.int32),
+                                     idx=torch.zeros((1, 1), dtype=torch.int32),
+                                     w=torch.ones((1, 1)), n=1)
+    ok = sa.DeviceBucketedEll(tuple(one() for _ in range(sa.MAX_BUCKETS)))
+    assert len(sa.launch_table(ok, 8).tile_start) == 16
+    with pytest.raises(ValueError, match="at most 16"):
+        sa.launch_table(sa.DeviceBucketedEll(tuple(one() for _ in range(17))), 8)
