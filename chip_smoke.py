@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wire [TREE]   # phases 1, 2 and 6 only, on the
+                                          # kernels of the checkout at TREE
 
 Phases, each printed on its own lines; any failure exits non-zero before
 the result line is printed:
@@ -34,7 +36,9 @@ the result line is printed:
 6. wire    — quant_pack and dequant_unpack against their plain versions at
              the Int2 wire's shape (28,032 rows) for bits in {2, 4, 8} and
              F in {100, 256, 47}: packed words, zero, scale and the
-             dequantized values must be bitwise equal; then times.
+             dequantized values must be bitwise equal; then times at the
+             Int2 wire's two widths, F = 256 and F = 100, back to back and
+             after a 64 MB write that evicts the L2.
 7. train   — the training main path: build_session on the card for
              train_products_paper (3-layer GraphSAGE, hidden 256, 16384-node
              graph, 8 workers stacked, hierarchical 2x4, Int2 inter wire,
@@ -121,15 +125,17 @@ def _syncs(fn) -> bool:
         torch.cuda.synchronize()
 
 
-def device_ms(fn, what: str = "", calls: int = 20, reps: int = 7) -> float:
+def device_ms(fn, what: str = "", calls: int = 20, reps: int = 7, between=None) -> float:
     """Median device time of one ``fn`` call with the host's launch cost
     hidden: a GPU sleep holds the stream while the host enqueues ``calls``
     calls, and CUDA events around them time the device alone. If the
     sleep ends before the host has enqueued them all, it is doubled and
-    the run repeated. A call that waits for the device (so no sleep can
-    hide its host side), or one the host cannot enqueue under a 4 s sleep,
-    is timed instead as the profiler's sum of its device activities per
-    call, and a line says so."""
+    the run repeated. With ``between`` (say, a write that evicts the L2),
+    it runs before each call, and events around each call time ``fn``
+    alone. A call that waits for the device (so no sleep can hide its host
+    side), or one the host cannot enqueue under a 4 s sleep, is timed
+    instead as the profiler's sum of its device activities per call, and a
+    line says so."""
     import torch
     fn()
     syncs = _syncs(fn)
@@ -140,15 +146,25 @@ def device_ms(fn, what: str = "", calls: int = 20, reps: int = 7) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         start.record()
+        pairs = []
         for _ in range(calls):
+            if between is None:
+                fn()
+                continue
+            between()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
             fn()
+            b.record()
+            pairs.append((a, b))
         end.record()
         late = start.query()     # the device reached `start` before the host was done
         torch.cuda.synchronize()
         if late:
             cycles *= 2
             continue
-        per_call.append(start.elapsed_time(end) / calls)
+        per_call.append(sum(a.elapsed_time(b) for a, b in pairs) / calls if pairs
+                        else start.elapsed_time(end) / calls)
     if len(per_call) == reps:
         return statistics.median(per_call)
     _, busy_s, _ = profile_device(lambda: [fn() for _ in range(calls)])
@@ -455,7 +471,7 @@ WIRE_ROWS = 28032   # Int2 inter wire of train_products_paper: 8 workers x 3504 
 
 def check_quant_kernels(dev) -> dict:
     """quant_pack / dequant_unpack vs their plain versions, bitwise, at the
-    wire's shape; times at F = 256, bits = 2."""
+    wire's shape; times at F = 256 and F = 100, bits = 2."""
     import numpy as np
     import torch
 
@@ -498,29 +514,45 @@ def check_quant_kernels(dev) -> dict:
           f"(packed words, zero, scale, dequantized values) at {WIRE_ROWS} rows, "
           f"bits in (2, 4, 8), F in (100, 256, 47)", flush=True)
 
-    f, bits = 256, 2
-    x = torch.from_numpy(rng.normal(size=(WIRE_ROWS, f)).astype(np.float32)).to(dev)
-    u = torch.rand((WIRE_ROWS, f), device=dev)
-    note(compare(x, u, bits, f))
-    packed, zero, scale = qp.quant_pack(x, u, bits)
-    words = packed.shape[1]
+    # Times on the Int2 wire at both widths it carries (layer 0: F = 100).
+    # dequant_unpack's output (28.7 MB at F = 256) fits in the 50 MB L2, so
+    # back-to-back calls can beat the HBM bound; the second timing writes a
+    # 64 MB scratch buffer before each call, which evicts the L2.
+    bits = 2
+    flush_buf = torch.empty(16 * 2**20, dtype=torch.float32, device=dev)
+    flush = lambda: flush_buf.fill_(1.0)
     groups = WIRE_ROWS // 4
     out = {}
-    for name, kernel, plain, nbytes in (
-            ("quant_pack", lambda: qp.quant_pack(x, u, bits),
-             lambda: quant_pack_ref(x, u, bits),
-             WIRE_ROWS * f * 8 + WIRE_ROWS * words * 4 + groups * 8),
-            ("dequant_unpack", lambda: qp.dequant_unpack(packed, zero, scale, bits, f),
-             lambda: dequant_unpack_ref(packed, zero, scale, bits, f),
-             WIRE_ROWS * words * 4 + groups * 8 + WIRE_ROWS * f * 4)):
-        ms, plain_ms = device_ms(kernel, name), device_ms(plain, f"{name} plain")
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "library_ms": None, "max_abs_err": errs[name]}
-        print(f"[wire] {name} at {WIRE_ROWS} rows, F={f}, bits={bits}: max abs err "
-              f"{errs[name]:.3e} over every compared shape; device time per "
-              f"call kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; bound {bound_ms:.5f} ms "
-              f"(bytes: {nbytes} B)", flush=True)
+    for f in (256, 100):
+        x = torch.from_numpy(rng.normal(size=(WIRE_ROWS, f)).astype(np.float32)).to(dev)
+        u = torch.rand((WIRE_ROWS, f), device=dev)
+        note(compare(x, u, bits, f))
+        packed, zero, scale = qp.quant_pack(x, u, bits)
+        words = packed.shape[1]
+        for name, kernel, plain, nbytes in (
+                ("quant_pack", lambda: qp.quant_pack(x, u, bits),
+                 lambda: quant_pack_ref(x, u, bits),
+                 WIRE_ROWS * f * 8 + WIRE_ROWS * words * 4 + groups * 8),
+                ("dequant_unpack", lambda: qp.dequant_unpack(packed, zero, scale, bits, f),
+                 lambda: dequant_unpack_ref(packed, zero, scale, bits, f),
+                 WIRE_ROWS * words * 4 + groups * 8 + WIRE_ROWS * f * 4)):
+            ms = device_ms(kernel, name)
+            flushed_ms = device_ms(kernel, f"{name} after a 64 MB write", between=flush)
+            plain_ms = device_ms(plain, f"{name} plain")
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            r = {"ms": ms, "ms_after_flush": flushed_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            if f == 256:
+                out[name] = r
+            else:
+                out[name][f"F{f}"] = r
+            print(f"[wire] {name} at {WIRE_ROWS} rows, F={f}, bits={bits}: device time "
+                  f"per call kernel {ms:.5f} ms ({ms / bound_ms:.2f}x bound), "
+                  f"{flushed_ms:.5f} ms after a 64 MB write, plain {plain_ms:.5f} ms; "
+                  f"bound {bound_ms:.5f} ms (bytes: {nbytes} B)", flush=True)
+    for name, e in errs.items():
+        out[name]["max_abs_err"] = e
+        print(f"[wire] {name}: max abs err {e:.3e} over every compared shape", flush=True)
     return out
 
 
@@ -697,6 +729,9 @@ def train_main_path(session) -> dict:
     for k, v in counts.items():
         if v <= 0:
             fail(f"the training main path launched no {k} kernel")
+    if counts["quant_pack"] != counts["dequant_unpack"]:
+        fail("quant_pack and dequant_unpack launched unequal times: each wire "
+             "call launches each once")
     wall, busy_s, by_name = profile_device(session.train_epoch)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if by_name:
@@ -747,6 +782,31 @@ def train_parity(dev) -> None:
             fail(f"training on the card and on the CPU differ by {diff} ({label})")
 
 
+def wire_only(tree: Path, dev, smi: str) -> None:
+    """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
+    so that two trees (a parent and its change) are timed by one harness
+    in one call on one card."""
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quant_pack as qp
+
+    if not Path(qp.__file__).resolve().is_relative_to(tree.resolve()):
+        fail(f"--wire {tree}: imported repro_torch from {qp.__file__}")
+    libs = build.build_all()
+    print(f"[build] {tree}: {', '.join(p.name for p in libs)}", flush=True)
+    print_ptxas(build.build_logs)
+    wire = check_quant_kernels(dev)
+    print(json.dumps({"tree": str(tree), "wire": wire}))
+    print(smi)
+
+
+def print_ptxas(logs: dict) -> None:
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -762,6 +822,8 @@ def main() -> None:
     print(f"[device] torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} torch.backends.cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    if sys.argv[1:2] == ["--wire"]:
+        return wire_only(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT, dev, smi)
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -773,10 +835,7 @@ def main() -> None:
     libs = build.build_all()
     print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s: "
           f"{', '.join(p.name for p in libs)}", flush=True)
-    for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+    print_ptxas(build.build_logs)
 
     worst = check_kernels(dev)
 
@@ -823,8 +882,8 @@ def main() -> None:
                        else "src/repro_torch/kernels/csrc/seg_aggregate.cu"),
             "replaces": replaces, "launches": launches[name],
             **{k: nums[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms",
-                                    "launches_per_call") if k in nums}})
+                                    "bound_by", "library_ms", "launches_per_call",
+                                    "ms_after_flush", "F100") if k in nums}})
     kernels[0]["serve"] = {"launches": served["launches"],
                            "max_abs_err": max(worst, *(v["max_abs_err"]
                                                        for v in timings.values())),

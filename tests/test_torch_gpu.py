@@ -1,4 +1,5 @@
 """Tests of the port that need a CUDA card (marker ``gpu``); they skip without one.
+One test, of the packed layout the quantizer kernels store, runs on the CPU.
 
 They import neither JAX nor the JAX package, so they run on a machine
 with only PyTorch: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -96,24 +97,67 @@ def test_serving_on_card_matches_cpu(cuda):
 # -- the training slice ---------------------------------------------------------
 
 
+QUANT_CASES = ("random", "empty_range", "signed_zeros", "noise_near_one", "unaligned")
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", QUANT_CASES)
+@pytest.mark.parametrize("rows", [4, 1024])
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("f", [100, 256, 47])
-def test_quant_kernels_equal_plain_bitwise(cuda, bits, f):
+@pytest.mark.parametrize("f", [4, 16, 47, 100, 256, 1024])
+def test_quant_kernels_equal_plain_bitwise(cuda, f, bits, rows, case):
+    """Every path of csrc/quant_pack.cu: F = 4 (one float4 a row), 16 (whole
+    words only), 47 (the scalar path), 100 (a ragged last word), 256 (the
+    widest row held in registers), 1024 (the looping path); one group or
+    256. The last group holds the case: an empty range, both -0.0 and +0.0
+    as its minimum, noise at 1 - 2^-24, or x and noise 4 bytes off a
+    16-byte boundary (the float4 paths must not be taken)."""
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels.ref import dequant_unpack_ref, quant_pack_ref
 
-    rng = np.random.default_rng(bits * 100 + f)
-    x = torch.from_numpy(rng.normal(size=(1024, f)).astype(np.float32)).to(cuda)
-    x[4:8] = 0.5
-    u = torch.rand((1024, f), device=cuda)
+    rng = np.random.default_rng([f, bits, rows, QUANT_CASES.index(case)])
+    x = rng.normal(size=(rows, f)).astype(np.float32)
+    u = rng.uniform(size=(rows, f)).astype(np.float32)
+    last = slice(rows - 4, rows)
+    if case == "empty_range":
+        x[last] = 0.5
+    elif case == "signed_zeros":
+        x[last] = np.abs(x[last])
+        x[rows - 4, 0], x[rows - 1, -1] = -0.0, 0.0
+    elif case == "noise_near_one":
+        u[last] = np.float32(1.0) - np.float32(2.0**-24)
+    x, u = torch.from_numpy(x).to(cuda), torch.from_numpy(u).to(cuda)
+    if case == "unaligned":
+        x, u = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(rows, f) for t in (x, u))
+        assert x.data_ptr() % 16 and u.data_ptr() % 16 and x.is_contiguous()
     before = (qp.pack_launches, qp.unpack_launches)
     got = qp.quant_pack(x, u, bits)
     want = quant_pack_ref(x, u, bits)
-    for a, b in zip(got, want):
+    for a, b in zip(got, want):       # zero: either sign of 0.0 is the group's min
         assert torch.equal(a, b)
-    assert torch.equal(qp.dequant_unpack(*got, bits, f), dequant_unpack_ref(*want, bits, f))
+    deq = qp.dequant_unpack(*want, bits, f)
+    assert torch.equal(deq.view(torch.int32),
+                       dequant_unpack_ref(*want, bits, f).view(torch.int32))
     assert (qp.pack_launches, qp.unpack_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("f", [4, 16, 100, 256])
+def test_packed_row_layout_the_kernels_store(bits, f):
+    """The layout csrc/quant_pack.cu's float4 paths rely on (CPU, the plain
+    packer): unit c of a packed row, a byte at Int2, a half-word at Int4
+    and a word at Int8 (little-endian), holds the fields of features
+    4c..4c+3, and the bytes after the last such unit are zero."""
+    from repro_torch.quant.stochastic import pack_bits
+
+    rng = np.random.default_rng([bits, f])
+    q = rng.integers(0, 1 << bits, size=(8, f))
+    packed = pack_bits(torch.from_numpy(q.astype(np.int32)), bits).numpy()
+    row_bytes = packed.view(np.uint8).reshape(8, -1)
+    units = row_bytes[:, : f * bits // 8].view({2: np.uint8, 4: "<u2", 8: "<u4"}[bits])
+    want = sum(q[:, j::4] << (j * bits) for j in range(4))
+    np.testing.assert_array_equal(units, want)
+    assert not row_bytes[:, f * bits // 8:].any()
 
 
 @pytest.mark.gpu
@@ -163,9 +207,10 @@ def test_training_on_card_matches_cpu(cuda):
 
 def _hub_layouts(dev):
     """A stack of 3 workers over 200 source rows and its one-graph padded
-    form: worker 1 has a hub row of degree 700 (K = 1024 bucket) that the
-    others lack, row 0 is real (degree 1) in worker 0, row 5 has degree 0
-    everywhere; weights are mean-normalized (each row sums to 1)."""
+    form (worker 1): worker 1 has a hub row of degree 700 (K = 1024 bucket)
+    that the others lack, row 0 is real (degree 1) in workers 0 and 1, row
+    5 has degree 0 everywhere; weights are mean-normalized (each row sums
+    to 1)."""
     from repro_torch.graph.structure import stack_bucketed_ells
 
     rng = np.random.default_rng(5)
@@ -175,6 +220,7 @@ def _hub_layouts(dev):
         dst = rng.integers(1, 64, src.shape[0])
         if p == 1:
             dst[:700] = 9
+            dst[700] = 0
         if p == 0:
             dst[0] = 0
         keep = dst != 5
