@@ -44,8 +44,9 @@ the result line is printed:
              graph, 8 workers stacked, hierarchical 2x4, Int2 inter wire,
              inter_cd=2). The stacked seg_aggregate and its backward are held
              to their plain versions on the session's own layouts (rtol =
-             atol = 1e-5). On all six stacked layouts (local graph, intra and
-             inter receive scatters, and the reverse of each), at F in (100,
+             atol = 1e-5). On all ten stacked layouts (local graph, intra and
+             inter send-side pre-aggregations and receive scatters, and the
+             reverse of each), at F in (100,
              256, 47), two launches must give the same bits and agree with
              the plain version; each layout is timed at F = 256 beside the
              plain version, torch.sparse.mm and the bound, with one launch
@@ -56,7 +57,25 @@ the result line is printed:
 8. train parity — the small flagship spec (vmap) for 3 epochs on the card
              and on the CPU, randomness drawn on the CPU and copied to both:
              fp32 inter wire within 1e-5, Int2 inter wire within 1e-3.
-9. the kernels line (JSON), the nvidia-smi line, and the result line.
+9. single  — train_gcn_single on the card: the paper's GraphSAGE (ogbn-
+             products preset, 16384-node stand-in), then GAT (ogbn-arxiv
+             preset: 128 in, hidden 256, 40 classes, 4 heads, 8192 nodes),
+             4 epochs with an eval after each; launch counts reset just
+             before and read just after; each epoch's loss on the card and
+             on the CPU from the same state and draws within 1e-5 (the
+             free-running gap is printed); epoch times of single_train_step
+             and one profiled step. The one-graph layout's forward (ell) and
+             backward (ell_t) against the plain versions and timed at F=256.
+10. gat serve — serve_products_paper as GAT (one head: 47 classes) at full
+             fanout: 8 requests in one dispatch, bitwise equal to the
+             full-batch forward.
+11. ckpt   — train_products_paper for 4 epochs against 2 epochs
+             checkpointed and a fresh session resumed to 4: losses and state
+             bitwise; then build_server with serve.ckpt: parameters equal to
+             the trained ones and served logits equal to the full-batch
+             forward, bitwise; checkpoint MB, save and restore seconds.
+12. the kernels line (JSON, with each kernel's launches on every path), the
+             nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
@@ -582,14 +601,16 @@ def _block_diag_csr(lay, out_rows, in_rows, dev):
 
 
 def train_layouts(session) -> list:
-    """The six stacked layouts of the training path: (name, layout, source
+    """The ten stacked layouts of the training path: (name, layout, source
     rows, output rows, whether it is a backward layout)."""
     wd = session.wd
     m = wd.x.shape[1]
     out = [("local", wd.ell, m, m, False), ("local_t", wd.ell_t, m, m, True)]
     for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
         wire = plan.send_gather_idx.shape[1]
-        out += [(f"{name} receive", plan.recv_ell, wire, m, False),
+        out += [(f"{name} pre", plan.pre_ell, m, wire, False),
+                (f"{name} pre_t", plan.pre_ell_t, wire, m, True),
+                (f"{name} receive", plan.recv_ell, wire, m, False),
                 (f"{name} receive_t", plan.recv_ell_t, m, wire, True)]
     return out
 
@@ -693,6 +714,54 @@ def check_train_kernels(session, dev) -> dict:
     return {"forward": numbers["local"], "backward": numbers["local_t"]}
 
 
+def pre_aggregation_repeats(session, dev) -> dict:
+    """The send-side pre-aggregation of each stage (``assemble_send``)
+    repeated three times on the same input at F=256, forward and backward:
+    on the ``ell`` backend (the kernel; must repeat bitwise, or a resumed
+    run could not equal an uninterrupted one) and on the ``coo`` parity
+    backend (``index_add``, atomics on the card; printed only)."""
+    import torch
+
+    from repro_torch.core.exchange import assemble_send
+
+    wd, out = session.wd, {}
+    for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
+        h = torch.randn((wd.x.shape[0], wd.x.shape[1], 256), device=dev)
+        for backend in ("ell", "coo"):
+            fwd, bwd = [], []
+            for _ in range(3):
+                x = h.clone().requires_grad_(True)
+                y = assemble_send(x, plan, backend)
+                g = torch.ones_like(y) if not bwd else g
+                fwd.append(y.detach())
+                bwd.append(torch.autograd.grad(y, x, g)[0])
+            out[f"{name} {backend}"] = (all(torch.equal(fwd[0], v) for v in fwd),
+                                        all(torch.equal(bwd[0], v) for v in bwd))
+    print("[train] send-side pre-aggregation repeated 3 times at F=256, (forward, "
+          "backward) bitwise: " + ", ".join(f"{k} {v}" for k, v in out.items()),
+          flush=True)
+    if not all(out["intra ell"] + out["inter ell"]):
+        fail("the kernel's send-side pre-aggregation does not repeat bit for bit")
+    return out
+
+
+def counts() -> dict:
+    """Every kernel's launch count so far."""
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import seg_aggregate as sa
+
+    return {"seg_aggregate": sa.launches, "seg_aggregate_backward": sa.backward_launches,
+            "quant_pack": qp.pack_launches, "dequant_unpack": qp.unpack_launches}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import seg_aggregate as sa
+
+    sa.launches = sa.backward_launches = qp.pack_launches = qp.unpack_launches = 0
+
+
 TRAIN_EPOCHS = 4
 
 
@@ -703,10 +772,7 @@ def train_main_path(session) -> dict:
 
     import torch
 
-    from repro_torch.kernels import quant_pack as qp
-    from repro_torch.kernels import seg_aggregate as sa
-
-    sa.launches = sa.backward_launches = qp.pack_launches = qp.unpack_launches = 0
+    reset_counts()
     epochs = []
     for _ in range(TRAIN_EPOCHS):
         torch.cuda.synchronize()
@@ -716,8 +782,7 @@ def train_main_path(session) -> dict:
         m["ms"] = (time.perf_counter() - t0) * 1e3
         epochs.append(m)
     acc = session.evaluate()
-    counts = {"seg_aggregate": sa.launches, "seg_aggregate_backward": sa.backward_launches,
-              "quant_pack": qp.pack_launches, "dequant_unpack": qp.unpack_launches}
+    launched = counts()
     for i, m in enumerate(epochs):
         print(f"[train] epoch {i}: loss {m['loss']:.6f} train_acc {m['train_acc']:.4f} "
               f"{m['ms']:.3f} ms (CUDA-synchronized host clock)", flush=True)
@@ -725,11 +790,11 @@ def train_main_path(session) -> dict:
             fail(f"non-finite training loss at epoch {i}: {m['loss']}")
     print(f"[train] eval accuracy after {TRAIN_EPOCHS} epochs: {acc:.4f}", flush=True)
     print(f"[train] kernel launches on the main path ({TRAIN_EPOCHS} epochs + eval): "
-          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
-    for k, v in counts.items():
+          + ", ".join(f"{k} {v}" for k, v in launched.items()), flush=True)
+    for k, v in launched.items():
         if v <= 0:
             fail(f"the training main path launched no {k} kernel")
-    if counts["quant_pack"] != counts["dequant_unpack"]:
+    if launched["quant_pack"] != launched["dequant_unpack"]:
         fail("quant_pack and dequant_unpack launched unequal times: each wire "
              "call launches each once")
     wall, busy_s, by_name = profile_device(session.train_epoch)
@@ -743,7 +808,7 @@ def train_main_path(session) -> dict:
     else:
         print(f"[train] profiled epoch: wall {wall:.4f} s, device busy share not "
               "measured (the profiler recorded no device activity)", flush=True)
-    return {"epochs": epochs, "eval_acc": acc, "launches": counts,
+    return {"epochs": epochs, "eval_acc": acc, "launches": launched,
             "device_busy_share": busy_s / wall if by_name else None}
 
 
@@ -780,6 +845,263 @@ def train_parity(dev) -> None:
               f"{bool(np.array_equal(card, card2))}", flush=True)
         if not np.all(np.isfinite(card)) or diff > tol:
             fail(f"training on the card and on the CPU differ by {diff} ({label})")
+
+
+# -- phases 9 to 11: single-device training, GAT, checkpoints -------------------
+
+SINGLE_EPOCHS = 4
+
+
+def raw_graph(spec):
+    """(graph, features) of a RunSpec's graph section before normalization,
+    which is what train_gcn_single takes (it normalizes itself)."""
+    import repro_torch.run.sources as sources
+    from repro_torch.run.spec import FEATURE_SOURCES, GRAPH_SOURCES
+
+    gs = spec.graph
+    g = GRAPH_SOURCES.get(gs.source)(gs)
+    return g, FEATURE_SOURCES.get(sources.resolve_features(gs))(g, gs)
+
+
+def preset_graph(name: str):
+    """The raw SBM stand-in of a paper preset, as train_products_paper
+    builds its graph section (for ogbn-products, that very graph)."""
+    from repro_torch.configs.graphsage_paper import PAPER_PRESETS
+    from repro_torch.configs.train_products_paper import FLAGSHIP
+    from repro_torch.run import RunSpec
+
+    p = PAPER_PRESETS[name]
+    return raw_graph(RunSpec.from_dict(FLAGSHIP).with_overrides([
+        f"graph.nodes={p.sbm_nodes}", f"graph.avg_degree={p.sbm_degree}",
+        f"graph.feat_dim={p.feat_dim}", f"graph.classes={p.num_classes}"]))
+
+
+def single_phase(label: str, g, x, cfg, dev) -> dict:
+    """train_gcn_single on the card for SINGLE_EPOCHS epochs with an eval
+    after each (the main path: counts reset just before, read just after),
+    held to the CPU with the same draws (made on the CPU): each epoch's
+    step from the card's own state, run once on the card and once on the
+    CPU, losses within TOL. The free-running gap (the whole run repeated on
+    the CPU from the same initial parameters) is printed, not held to a
+    bar: AdamW's first steps move each weight by about lr * sign(gradient),
+    so a weight whose gradient is near zero, with another sign under the
+    other device's summation order, moves by up to 2 lr, and the two runs
+    drift apart from there. Then epoch times of single_train_step alone,
+    with draws made on the card, and one profiled step."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GeneratorRandomness, train_gcn_single
+    from repro_torch.core import model as M
+    from repro_torch.core.trainer import prepare_single, single_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWState, tree_map
+
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    draws = lambda: GeneratorRandomness(0, draw_device="cpu")
+    runs = []
+    for where in (dev, "cpu"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = train_gcn_single(g, x, cfg, SINGLE_EPOCHS, log_every=1, device=where,
+                                   params=params, randomness=draws())
+        torch.cuda.synchronize()
+        runs.append((hist, time.perf_counter() - t0, counts()))
+    (card_hist, card_s, launched), (cpu_hist, cpu_s, _) = runs
+    card, cpu = ([h["loss"] for h in hist] for hist in (card_hist, cpu_hist))
+    free_diff = float(np.abs(np.asarray(card) - np.asarray(cpu)).max())
+    acc = [h["eval_acc"] for h in card_hist]
+
+    data = prepare_single(g, x, layouts=("bucketed",), device=dev)
+    data_cpu = prepare_single(g, x, layouts=("bucketed",), device="cpu")
+    p = M.to_device(params, dev)
+    opt, rnd, steps = adamw_init(p), draws(), []
+    to_cpu = lambda t: t.cpu()
+    for e in range(SINGLE_EPOCHS):
+        opt_cpu = AdamWState(opt.step, tree_map(to_cpu, opt.mu), tree_map(to_cpu, opt.nu))
+        _, _, on_cpu = single_train_step(tree_map(to_cpu, p), opt_cpu, cfg, data_cpu, rnd, e)
+        p, opt, on_card = single_train_step(p, opt, cfg, data, rnd, e)
+        steps.append((float(on_card["loss"]), float(on_cpu["loss"])))
+    step_diff = max(abs(a - b) for a, b in steps)
+
+    p = M.to_device(params, dev)
+    opt, rnd, ms = adamw_init(p), GeneratorRandomness(0), []
+    for e in range(SINGLE_EPOCHS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, _ = single_train_step(p, opt, cfg, data, rnd, e)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    wall, busy_s, by_name = profile_device(
+        lambda: single_train_step(p, opt, cfg, data, rnd, SINGLE_EPOCHS + 1))
+    print(f"[{label}] {g.num_nodes} nodes, {cfg.model} x{cfg.num_layers} dims "
+          f"{cfg.dims()}, {SINGLE_EPOCHS} epochs with an eval after each: card losses "
+          f"{card}, eval accuracy {acc}; train_gcn_single wall {card_s:.3f} s "
+          f"(card, draws made on the CPU), {cpu_s:.3f} s (CPU)", flush=True)
+    print(f"[{label}] card vs CPU, step by step from the card's state: losses "
+          f"{steps}, max diff {step_diff:.3e} (bar {TOL}); free-running: CPU losses "
+          f"{cpu}, max diff {free_diff:.3e} (recorded, no bar); step-by-step card "
+          f"losses equal the main path's bitwise: "
+          f"{[a for a, _ in steps] == card}", flush=True)
+    print(f"[{label}] single_train_step ms (CUDA-synchronized host clock, draws on "
+          f"the card): {', '.join(f'{v:.3f}' for v in ms)} (the first builds the "
+          f"kernel tables)", flush=True)
+    if by_name:
+        print(f"[{label}] profiled step: wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy_s * 1e3:.3f} ms ({busy_s / wall:.2%}); top: " + "; ".join(
+                  f"{sec * 1e3:.3f} ms {name[:60]}" for name, sec in
+                  sorted(by_name.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+    per_epoch = {k: v / SINGLE_EPOCHS for k, v in launched.items()}
+    print(f"[{label}] kernel launches on the main path: " + ", ".join(
+        f"{k} {v} ({per_epoch[k]:.2f} per epoch)" for k, v in launched.items()),
+        flush=True)
+    if not all(math.isfinite(v) for v in card) or step_diff > TOL:
+        fail(f"{label}: card and CPU losses from the same state differ by {step_diff}")
+    if launched["seg_aggregate"] <= 0 or (cfg.model != "gat"
+                                          and launched["seg_aggregate_backward"] <= 0):
+        fail(f"{label}: the main path launched no seg_aggregate kernel, forward or "
+             "backward")
+    return {"losses": card, "cpu_losses": cpu, "step_losses": steps,
+            "max_step_diff": step_diff, "max_free_run_diff": free_diff, "eval_acc": acc,
+            "epoch_ms": ms, "launches": launched, "data": data}
+
+
+def single_kernel_numbers(data, g, dev) -> dict:
+    """The one-graph training layout at F=256: the forward over ``ell``
+    and the backward over ``ell_t`` (autograd through the kernel) against
+    the plain versions; each layout's times beside its bound and
+    torch.sparse.mm's."""
+    import torch
+
+    from repro_torch.graph.structure import transpose_csr
+    from repro_torch.kernels import seg_aggregate as sa
+
+    csr = g.mean_normalized().csr_by_dst()
+    n = csr.num_rows
+    x = torch.randn((n, 256), device=dev, requires_grad=True)
+    y = sa.bucketed_aggregate(x, data.ell, ell_t=data.ell_t)
+    grad = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, grad)
+    err = max(max_err(y, sa.bucketed_forward_ref(x.detach(), data.ell, n)),
+              max_err(dx, sa.bucketed_forward_ref(grad, data.ell_t, n)))
+    x = x.detach()
+    fwd = operator_numbers("single-device forward (ell) F=256", x, data.ell, csr, n, n)
+    bwd = operator_numbers("single-device backward (ell_t) F=256", x, data.ell_t,
+                           transpose_csr(csr), n, n)
+    for r in (fwd, bwd):
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    return {"forward": fwd, "backward": bwd}
+
+
+def gat_serve_parity(dev) -> dict:
+    """GAT (one head: 47 classes) served on serve_products_paper at full
+    fanout: 8 single-node requests in one dispatch, bitwise against the
+    full-batch forward; counts reset just before serving, read just after."""
+    import numpy as np
+
+    from repro_torch.configs.serve_products_paper import serve_products_paper
+    from repro_torch.serve import build_server
+
+    server = build_server(serve_products_paper("model.model=gat", "model.gat_heads=1",
+                                               "serve.fanouts=full"), device=dev)
+    targets = [int(v) for v in np.random.default_rng(4).integers(
+        0, server.graph.num_nodes, BATCH)]
+    reset_counts()
+    served = np.concatenate(server.serve_batch([[t] for t in targets]))
+    launched = counts()
+    full = server.full_batch_logits()[np.asarray(targets)]
+    bitwise = bool(np.array_equal(served, full))
+    print(f"[gat serve] {server.cfg.model} x{server.cfg.num_layers} heads "
+          f"{server.cfg.gat_heads} dims {server.cfg.dims()}, {BATCH} requests in "
+          f"{server.batches_dispatched} dispatch (shape classes "
+          f"{server.shape_classes()}): served vs full-batch logits bitwise {bitwise}, "
+          f"max abs diff {float(np.abs(served - full).max()):.3e}; seg_aggregate "
+          f"launches {launched['seg_aggregate']}", flush=True)
+    if not bitwise or not np.all(np.isfinite(served)):
+        fail("GAT served logits differ from the full-batch forward")
+    if launched["seg_aggregate"] <= 0:
+        fail("GAT serving launched no seg_aggregate kernel")
+    return {"launches": launched}
+
+
+def ckpt_phase(dev) -> dict:
+    """train_products_paper: 4 epochs uninterrupted against 2 epochs
+    checkpointed and a fresh session resumed to 4 (losses and state bit
+    for bit); then serve_products_paper from the checkpoint at full fanout
+    (parameters equal to the trained ones, served logits equal to the
+    full-batch forward, bit for bit). Counts are reset before the resumed
+    run and read after the served batch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.configs.serve_products_paper import serve_products_paper
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.run import build_session
+    from repro_torch.serve import build_server
+
+    def same(a, b) -> bool:
+        fa, fb = _flatten(a), _flatten(b)
+        return sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    full = build_session(train_products_paper("exec.epochs=4"), device=dev)
+    hist = full.fit(log_every=1)
+    with tempfile.TemporaryDirectory() as d:
+        build_session(train_products_paper("exec.epochs=2", "exec.ckpt_every=2"),
+                      device=dev).fit(log_every=1, ckpt_dir=d)
+        mgr = CheckpointManager(d)
+        npz = mgr.path_for(2).with_suffix(".npz")
+        mb = npz.stat().st_size / 1e6
+        resumed = build_session(train_products_paper("exec.epochs=4", "exec.ckpt_every=2"),
+                                device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.trainer.restore_train_state_from(mgr)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        tail = resumed.fit(log_every=1, ckpt_dir=d, resume=True)
+        t0 = time.perf_counter()
+        resumed.trainer.save_train_state(CheckpointManager(Path(d) / "timed"))
+        save_s = time.perf_counter() - t0
+        state_equal = same(resumed.trainer.train_state(), full.trainer.train_state())
+        print(f"[ckpt] train_products_paper: uninterrupted losses "
+              f"{[h['loss'] for h in hist]}; resumed from epoch 2: "
+              f"{[h['loss'] for h in tail]}; losses and eval bitwise "
+              f"{tail == hist[2:]}, state (params, AdamW, halo cache) bitwise "
+              f"{state_equal}", flush=True)
+        print(f"[ckpt] checkpoint {mb:.3f} MB ({len(_flatten(full.trainer.train_state()))} "
+              f"arrays); save {save_s:.3f} s, restore {restore_s:.3f} s (host clock, "
+              f"temp dir)", flush=True)
+        if tail != hist[2:] or not state_equal:
+            fail("the resumed run differs from the uninterrupted one")
+        del full
+        server = build_server(serve_products_paper(f"serve.ckpt={d}", "serve.fanouts=full"),
+                              device=dev)
+        if not same(server.params, resumed.trainer.params):
+            fail("the server's restored parameters differ from the trained ones")
+        targets = [int(v) for v in np.random.default_rng(5).integers(
+            0, server.graph.num_nodes, 4)]
+        served = np.concatenate(server.serve_batch([[t] for t in targets]))
+        launched = counts()
+        bitwise = bool(np.array_equal(served, server.full_batch_logits()[targets]))
+    print(f"[ckpt] serve_products_paper from the checkpoint: parameters equal to "
+          f"the trained ones bitwise; 4 requests at full fanout vs the full-batch "
+          f"forward bitwise {bitwise}", flush=True)
+    print(f"[ckpt] kernel launches (resumed epochs 3-4 with evals, then the served "
+          f"batch): " + ", ".join(f"{k} {v}" for k, v in launched.items()), flush=True)
+    if not bitwise:
+        fail("logits served from the checkpoint differ from the full-batch forward")
+    for k, v in launched.items():
+        if v <= 0:
+            fail(f"the checkpoint phase launched no {k} kernel")
+    return {"launches": launched, "mb": mb, "save_s": save_s, "restore_s": restore_s}
 
 
 def wire_only(tree: Path, dev, smi: str) -> None:
@@ -862,9 +1184,23 @@ def main() -> None:
           f"x {tuple(wd.x.shape)}, dims {session.trainer.cfg.dims()}, schedule "
           f"{session.schedule.describe()}", flush=True)
     agg = check_train_kernels(session, dev)
+    pre_aggregation_repeats(session, dev)
     trained = train_main_path(session)
     del session
     train_parity(dev)
+
+    from repro_torch.configs.graphsage_paper import PAPER_PRESETS, gcn_config
+
+    g, x = preset_graph("ogbn-products")
+    single = single_phase("single sage", g, x, gcn_config(PAPER_PRESETS["ogbn-products"]),
+                          dev)
+    single_agg = single_kernel_numbers(single.pop("data"), g, dev)
+    g, x = preset_graph("ogbn-arxiv")
+    gat = single_phase("single gat", g, x,
+                       gcn_config(PAPER_PRESETS["ogbn-arxiv"], model="gat"), dev)
+    del gat["data"], g, x
+    gat_served = gat_serve_parity(dev)
+    ckpt = ckpt_phase(dev)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -884,6 +1220,16 @@ def main() -> None:
             **{k: nums[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "launches_per_call",
                                     "ms_after_flush", "F100") if k in nums}})
+    paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
+             "single_sage": single["launches"], "single_gat": gat["launches"],
+             "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"]}
+    for k in kernels:
+        k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
+    for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):
+        k["single"] = {"launches": single["launches"][k["name"]],
+                       **{f: nums[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms",
+                                                "launches_per_call")}}
     kernels[0]["serve"] = {"launches": served["launches"],
                            "max_abs_err": max(worst, *(v["max_abs_err"]
                                                        for v in timings.values())),

@@ -1,5 +1,5 @@
-# The GCN model, the stacked halo-exchange schedule and the distributed
-# trainer in PyTorch.
+# The GCN model, the stacked halo-exchange schedule, and the single-device
+# and distributed trainers in PyTorch.
 from repro_torch.core.model import (
     GCNConfig,
     forward,
@@ -20,9 +20,12 @@ from repro_torch.core.trainer import (
     DistConfig,
     DistributedTrainer,
     HostWorkerData,
+    SingleGraphData,
     WorkerData,
     lift_worker_data,
     prepare_distributed_host,
+    prepare_single,
+    train_gcn_single,
 )
 
 __all__ = [
@@ -36,6 +39,7 @@ __all__ = [
     "HostWorkerData",
     "LayerInFlight",
     "LayerProgram",
+    "SingleGraphData",
     "StageSpec",
     "WorkerData",
     "forward",
@@ -44,4 +48,6 @@ __all__ = [
     "loss_and_metrics",
     "lp_masks",
     "prepare_distributed_host",
+    "prepare_single",
+    "train_gcn_single",
 ]

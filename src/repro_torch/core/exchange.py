@@ -99,6 +99,34 @@ class DeviceHaloPlan(NamedTuple):
     # backward.
     recv_ell: Optional[segagg.DeviceBucketedEll] = None
     recv_ell_t: Optional[segagg.DeviceBucketedEll] = None
+    # The same for the send side's pre-aggregation (owned rows -> wire
+    # slots): on the card each slot's partials are then summed in a fixed
+    # order by the kernel, where ``index_add`` would add them with atomics.
+    pre_ell: Optional[segagg.DeviceBucketedEll] = None
+    pre_ell_t: Optional[segagg.DeviceBucketedEll] = None
+
+
+def _host_bucketed(src, dst, weight, num_dst: int, num_src: int):
+    """Bucketed-ELL (fwd + reverse) of each worker's weighted COO map
+    ``src -> dst`` ([P, nnz] numpy), as host *stacked* bucket tuples
+    (``stack_bucketed_ells`` format). Padding entries carry weight 0 and
+    are dropped, so they don't inflate row 0's degree class."""
+    fwd, rev = [], []
+    for p in range(src.shape[0]):
+        keep = weight[p] != 0
+        csr = gstruct.coo_to_csr(src[p][keep], dst[p][keep], weight[p][keep],
+                                 num_dst, num_src)
+        fwd.append(gstruct.bucketed_ell_from_csr(csr))
+        rev.append(gstruct.bucketed_ell_from_csr(gstruct.transpose_csr(csr)))
+    return (gstruct.stack_bucketed_ells(fwd),
+            gstruct.stack_bucketed_ells(rev))
+
+
+def host_pre_bucketed(hp, num_rows: int):
+    """:func:`_host_bucketed` of each worker's send-side pre-aggregation
+    (owned rows ``pre_src`` -> wire slots ``pre_slot``)."""
+    return _host_bucketed(hp.pre_src, hp.pre_slot, hp.pre_weight,
+                          hp.send_gather_idx.shape[-1], num_rows)
 
 
 def host_recv_bucketed(hp, num_rows: int):
@@ -106,18 +134,8 @@ def host_recv_bucketed(hp, num_rows: int):
     *stacked* bucket tuples ([P, ...] numpy, ``stack_bucketed_ells``
     format). The host plan's padding entries carry weight 0 — they are
     dropped here so they don't inflate row 0's degree class."""
-    P = hp.recv_row.shape[0]
-    wire_rows = hp.send_gather_idx.shape[-1]
-    fwd, rev = [], []
-    for p in range(P):
-        keep = hp.recv_weight[p] != 0
-        csr = gstruct.coo_to_csr(
-            hp.recv_row[p][keep], hp.recv_dst[p][keep],
-            hp.recv_weight[p][keep], num_rows, wire_rows)
-        fwd.append(gstruct.bucketed_ell_from_csr(csr))
-        rev.append(gstruct.bucketed_ell_from_csr(gstruct.transpose_csr(csr)))
-    return (gstruct.stack_bucketed_ells(fwd),
-            gstruct.stack_bucketed_ells(rev))
+    return _host_bucketed(hp.recv_row, hp.recv_dst, hp.recv_weight, num_rows,
+                          hp.send_gather_idx.shape[-1])
 
 
 def stack_halo_plan(hp, num_rows: Optional[int] = None,
@@ -125,14 +143,18 @@ def stack_halo_plan(hp, num_rows: Optional[int] = None,
     """graph.remote.HaloPlan (host numpy, [P, ...]) -> stacked device plan.
 
     ``num_rows`` (each worker's padded owned-row count) additionally builds
-    the bucketed recv-scatter layouts consumed by the ``ell`` aggregation
-    backend; without it the plan only supports the COO scatter path.
+    the bucketed pre-aggregation and recv-scatter layouts consumed by the
+    ``ell`` aggregation backend; without it the plan only supports the COO
+    paths.
     """
-    recv_ell = recv_ell_t = None
+    layouts = {}
     if num_rows is not None:
-        fwd, rev = host_recv_bucketed(hp, num_rows)
-        recv_ell = segagg.device_bucketed(fwd, device=device, squeeze=False)
-        recv_ell_t = segagg.device_bucketed(rev, device=device, squeeze=False)
+        for name, host in (("pre", host_pre_bucketed), ("recv", host_recv_bucketed)):
+            fwd, rev = host(hp, num_rows)
+            layouts[f"{name}_ell"] = segagg.device_bucketed(fwd, device=device,
+                                                           squeeze=False)
+            layouts[f"{name}_ell_t"] = segagg.device_bucketed(rev, device=device,
+                                                             squeeze=False)
 
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -146,8 +168,7 @@ def stack_halo_plan(hp, num_rows: Optional[int] = None,
         recv_row=t(hp.recv_row, torch.int64),
         recv_dst=t(hp.recv_dst, torch.int64),
         recv_weight=t(hp.recv_weight, torch.float32),
-        recv_ell=recv_ell,
-        recv_ell_t=recv_ell_t,
+        **layouts,
     )
 
 
@@ -167,12 +188,21 @@ def stack_hier_plan(hp, num_rows: Optional[int] = None,
     )
 
 
-def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan) -> torch.Tensor:
+def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan,
+                  agg_backend: str = "coo") -> torch.Tensor:
     """Build the [P, C*R, F] wire buffers: post raws + pre partials (Fig 2
-    step 4). The partials are added into their slots in index order on the
-    CPU; on the card ``index_add`` adds with atomics in no fixed order."""
+    step 4).
+
+    ``agg_backend="ell"`` (with a plan that carries the bucketed layouts)
+    sums each slot's partials with the aggregation kernel, forward and
+    backward, in a fixed order; ``"coo"`` adds them with ``index_add``, in
+    index order on the CPU but with atomics in no fixed order on the card.
+    """
     raw = torch.where(plan.send_gather_mask[..., None],
                       _take(h, plan.send_gather_idx), 0.0)
+    if agg_backend == "ell" and plan.pre_ell is not None:
+        return raw + segagg.bucketed_aggregate(h, plan.pre_ell, raw.shape[-2],
+                                               ell_t=plan.pre_ell_t)
     return _index_add(raw, plan.pre_slot,
                       plan.pre_weight[..., None] * _take(h, plan.pre_src))
 
@@ -568,7 +598,8 @@ class LayerProgram:
         stage_noise = None
         if noise is not None:
             stage_noise = lambda backward, shape: noise(si, backward, shape)
-        return stage_exchange(assemble_send(h, plan), topo, spec.bits, stage_noise)
+        return stage_exchange(assemble_send(h, plan, self.agg_backend), topo,
+                              spec.bits, stage_noise)
 
     def _refresh(self, si: int, recv, cache_entry, epoch):
         """Delayed-comm select: fresh recv on refresh epochs, the stale

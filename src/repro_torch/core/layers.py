@@ -1,13 +1,24 @@
 """GNN layer definitions in PyTorch (counterpart of ``repro/core/layers.py``).
 
-UPDATE stages for GCN, GraphSAGE and GIN (§3.2). The AGGREGATE stage is
-supplied by the caller as ``agg_fn``, as in the JAX package. GAT
-(``gat_aggregate``/``gat_aggregate_bucketed``) is not ported yet.
+UPDATE stages for GCN, GraphSAGE and GIN (§3.2), and GAT, whose attention
+fuses aggregation and update. The AGGREGATE stage of the linear models is
+supplied by the caller as ``agg_fn``, as in the JAX package.
 
 The dense products stay ``torch.matmul`` in full fp32: the JAX package
 left them to XLA outside any kernel, and the port needs
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) for
 them to stay fp32 on the card; the server sets it.
+
+GAT's attention is plain ``jnp`` in the JAX package (no Pallas kernel), so
+it is plain PyTorch here. Its weighted sum takes one of two forms:
+
+* with autograd recording (training), ``einsum`` over the slots, which
+  differentiates in the attention weights;
+* otherwise (evaluation, serving), the ``seg_aggregate`` kernel over a
+  stacked layout whose workers are the heads: ``Wh`` laid out ``[H, N,
+  dh]``, each head's slot weights its attention. The kernel sums each
+  row's slots in slot order and stores the row once, so a served row
+  equals its full-batch value bit for bit, as the linear models' rows do.
 """
 
 from __future__ import annotations
@@ -17,10 +28,10 @@ from typing import Dict
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+from repro_torch.kernels.seg_aggregate import (DeviceBucketedEll, DeviceEllBucket,
+                                               bucketed_aggregate)
 
-GAT_NOT_PORTED = ("model 'gat' is not ported to PyTorch yet; "
-                  "serve gcn, sage or gin, or use the JAX package")
+Params = Dict[str, torch.Tensor]
 
 
 def glorot(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -29,7 +40,8 @@ def glorot(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
     return (torch.rand(shape, generator=gen, dtype=dtype) * 2.0 - 1.0) * lim
 
 
-def init_layer(gen: torch.Generator, model: str, d_in: int, d_out: int) -> Params:
+def init_layer(gen: torch.Generator, model: str, d_in: int, d_out: int,
+               heads: int = 4) -> Params:
     """A layer's parameters on the CPU, under the JAX package's keys."""
     p: Params = {
         "ln_scale": torch.ones(d_in),
@@ -47,7 +59,12 @@ def init_layer(gen: torch.Generator, model: str, d_in: int, d_out: int) -> Param
         p["b1"] = torch.zeros(d_out)
         p["w2"] = glorot(gen, (d_out, d_out))
     elif model == "gat":
-        raise NotImplementedError(GAT_NOT_PORTED)
+        if d_out % heads:
+            raise ValueError(f"gat: d_out {d_out} % heads {heads}")
+        dh = d_out // heads
+        p["w"] = glorot(gen, (d_in, d_out))
+        p["a_src"] = glorot(gen, (heads, dh))
+        p["a_dst"] = glorot(gen, (heads, dh))
     else:
         raise ValueError(f"unknown model {model!r}")
     return p
@@ -69,6 +86,89 @@ def apply_update(model: str, p: Params, h: torch.Tensor, z: torch.Tensor) -> tor
     if model == "gin":
         s = (1.0 + p["eps"]) * h + z
         return torch.relu(s @ p["w1"] + p["b1"]) @ p["w2"] + p["b"]
-    if model == "gat":
-        raise NotImplementedError(GAT_NOT_PORTED)
     raise ValueError(f"apply_update: {model!r} has no linear UPDATE")
+
+
+def _attention_inputs(p: Params, h: torch.Tensor, heads: int):
+    """(Wh as [N, H, dh], e_src [N, H], e_dst [N, H]). The per-head dot
+    products reduce over dh in one fixed order whatever N is."""
+    wh = h @ p["w"]
+    whh = wh.reshape(h.shape[0], heads, wh.shape[-1] // heads)
+    return whh, (whh * p["a_src"]).sum(-1), (whh * p["a_dst"]).sum(-1)
+
+
+def _attention(e_dst_rows: torch.Tensor, e_src: torch.Tensor, idx: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """alpha [R, K, H]: softmax over each row's valid slots of
+    leaky_relu(e_dst[r] + e_src[idx[r, k]]). Invalid slots get -1e9 before
+    the softmax (so a degree-0 row stays finite) and 0 after."""
+    e = torch.nn.functional.leaky_relu(e_dst_rows[:, None, :] + e_src[idx], 0.2)
+    e = torch.where(valid[..., None], e, -1e9)
+    alpha = torch.softmax(e, dim=1)
+    return torch.where(valid[..., None], alpha, 0.0)
+
+
+def _records_grad(p: Params, h: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (h.requires_grad or p["w"].requires_grad)
+
+
+def gat_aggregate(
+    p: Params,
+    h: torch.Tensor,          # [N, d_in]
+    ell_idx: torch.Tensor,    # [R, K]
+    ell_valid: torch.Tensor,  # [R, K] bool
+    heads: int,
+) -> torch.Tensor:
+    """Full GAT layer on a dense ELL neighbourhood (one graph)."""
+    r = ell_idx.shape[0]
+    whh, e_src, e_dst = _attention_inputs(p, h, heads)
+    idx = ell_idx.long()
+    alpha = _attention(e_dst[:r], e_src, idx, ell_valid)
+    out = torch.einsum("rkh,rkhd->rhd", alpha, whh[idx])
+    return out.reshape(r, -1) + p["b"]
+
+
+def gat_aggregate_bucketed(
+    p: Params,
+    h: torch.Tensor,          # [N, d_in]
+    ell: DeviceBucketedEll,   # one graph's degree-bucketed layout
+    num_rows: int,
+    heads: int,
+) -> torch.Tensor:
+    """GAT layer on the shared degree-bucketed ELL layout.
+
+    Every row's neighbour slots live in exactly one degree bucket, so the
+    per-row softmax is computed bucket-locally over K (not max-degree)
+    slots. Slot validity is w > 0 (padding weights are exactly 0;
+    normalized edge weights are strictly positive). Each destination row
+    is in one bucket, so adding each bucket's rows onto zeros is one add
+    per row. Only a bucket's real rows (``n``) are computed: the JAX
+    package's padding rows add exact zeros.
+    """
+    whh, e_src, e_dst = _attention_inputs(p, h, heads)
+    dh = whh.shape[-1]
+    if _records_grad(p, h):
+        out = torch.zeros((num_rows, heads * dh), dtype=whh.dtype, device=whh.device)
+        for b in ell.buckets:
+            if not b.n:
+                continue
+            rows, idx = b.rows[:b.n].long(), b.idx[:b.n].long()
+            alpha = _attention(e_dst[rows], e_src, idx, b.w[:b.n] > 0)
+            agg = torch.einsum("rkh,rkhd->rhd", alpha, whh[idx])
+            out = out.index_add(0, rows, agg.reshape(b.n, heads * dh))
+        return out + p["b"]
+    # Heads as the stacked axis of one seg_aggregate launch.
+    stacked = []
+    for b in ell.buckets:
+        if not b.n:
+            continue
+        rows, idx = b.rows[:b.n], b.idx[:b.n]
+        alpha = _attention(e_dst[rows.long()], e_src, idx.long(), b.w[:b.n] > 0)
+        stacked.append(DeviceEllBucket(
+            rows=rows.expand(heads, b.n).contiguous(),
+            idx=idx.expand(heads, *idx.shape).contiguous(),
+            w=alpha.permute(2, 0, 1).contiguous(), n=b.n,
+            counts=torch.full((heads,), b.n, dtype=torch.int32, device=whh.device)))
+    xs = whh.permute(1, 0, 2).contiguous()                    # [H, N, dh]
+    out = bucketed_aggregate(xs, DeviceBucketedEll(tuple(stacked)), num_rows)
+    return out.permute(1, 0, 2).reshape(num_rows, heads * dh) + p["b"]

@@ -28,7 +28,7 @@ from repro_torch.core import layers as L
 
 @dataclass(frozen=True)
 class GCNConfig:
-    model: str = "sage"          # gcn | sage | gin (gat: not ported yet)
+    model: str = "sage"          # gcn | sage | gin | gat
     in_dim: int = 128
     hidden_dim: int = 256        # paper Table 2: 256 (128 for UK-2007-05)
     num_classes: int = 40
@@ -52,7 +52,7 @@ def init_params(cfg: GCNConfig, generator: Optional[torch.Generator] = None,
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dims = cfg.dims()
     params: Dict = {
-        "layers": [L.init_layer(gen, cfg.model, dims[i], dims[i + 1])
+        "layers": [L.init_layer(gen, cfg.model, dims[i], dims[i + 1], cfg.gat_heads)
                    for i in range(cfg.num_layers)]
     }
     if cfg.label_prop:
@@ -93,8 +93,6 @@ def forward(
     ``dropout_keep`` is given: layer ``l`` keeps ``dropout_keep(l,
     h.shape)`` (a bool mask drawn with probability ``1 - cfg.dropout``) and
     scales the kept values by ``1 / (1 - cfg.dropout)``."""
-    if cfg.model == "gat":
-        raise NotImplementedError(L.GAT_NOT_PORTED)
     h = x
     if cfg.label_prop:
         emb = params["lp_embed"][labels.clamp(0, cfg.num_classes - 1).long()]
@@ -107,8 +105,10 @@ def forward(
             # by its reciprocal, which can differ from the division.
             keep = torch.full((), 1.0 - cfg.dropout, device=h.device)
             h = torch.where(dropout_keep(l, tuple(h.shape)), h / keep, 0.0)
-        z = agg_fn(l, h)
-        h = L.apply_update(cfg.model, p, h, z)
+        if cfg.model == "gat":
+            h = agg_fn(l, h)  # GAT fuses aggregate+update (attention needs both ends)
+        else:
+            h = L.apply_update(cfg.model, p, h, agg_fn(l, h))
         if l < cfg.num_layers - 1:
             h = torch.relu(h)
     return h

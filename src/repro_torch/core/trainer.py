@@ -1,34 +1,50 @@
-"""Distributed full-batch GCN training (Fig 2), stacked on one device.
+"""Full-batch GCN training (Fig 2): single-device and distributed.
 
-Counterpart of ``repro/core/trainer.py`` as its ``mode="vmap"`` runs: the P
-workers of the distributed step sit on a leading axis of every tensor on
-one device (the card, or the CPU), and every collective is a tensor
-operation over that axis (``core.exchange``). One training step per epoch
-(full batch): masked-LP feature assembly -> per layer [LayerNorm ->
-dropout -> halo exchange ``issue`` -> local bucketed aggregation ->
-``finalize`` -> UPDATE] -> masked CE loss -> gradients -> AdamW.
+Counterpart of ``repro/core/trainer.py``. Two paths:
 
-The gradient follows the JAX package's, including a factor. Under
-``vmap`` its ``psum(grads)`` (``trainer.py:534``) returns P times the
+* **Single device** (``train_gcn_single`` and its parts): the whole graph
+  on one device, one training step per epoch. Every model aggregates over
+  the degree-bucketed layout (``prepare_single(layouts=("bucketed",))``),
+  so on the card the ``seg_aggregate`` kernel runs the forward over
+  ``ell`` and the backward over the reverse graph's ``ell_t``. The JAX
+  package trains gcn/sage/gin over the dense max-degree ELL instead; both
+  layouts hold each row's neighbours in CSR order, so the values agree to
+  fp32 rounding, and the bucketed one pads at most 2x nnz where the dense
+  one pads rows x max degree on power-law graphs.
+* **Distributed, stacked on one device** (``DistributedTrainer``), as the
+  JAX package's ``mode="vmap"`` runs it: the P workers of the distributed
+  step sit on a leading axis of every tensor, and every collective is a
+  tensor operation over that axis (``core.exchange``). Per epoch:
+  masked-LP feature assembly -> per layer [LayerNorm -> dropout -> halo
+  exchange ``issue`` -> local bucketed aggregation -> ``finalize`` ->
+  UPDATE] -> masked CE loss -> gradients -> AdamW.
+
+The distributed gradient follows the JAX package's, including a factor.
+Under ``vmap`` its ``psum(grads)`` (``trainer.py:534``) returns P times the
 gradient of the global mean loss (ROADMAP C-ref6), so the port
 backpropagates ``P * loss``. P is the worker count; for the paper's
 P = 8 the scaling is exact in fp32.
 
+A run's state (parameters, AdamW state and, for delayed-exchange
+schedules, the halo cache) checkpoints into the JAX package's npz format
+(``DistributedTrainer.train_state``); every random draw derives from the
+epoch number, so a resumed run reproduces the uninterrupted one bit for
+bit.
+
 Not ported yet (they raise): ``exec.mode`` values ``shard_map`` and
-``multiproc``, the checkpoint methods, ``lower_step``, and the
-single-device trainer (``train_gcn_single`` and friends).
+``multiproc``, ``lower_step``, and distributed GAT, which the JAX package
+cannot train either (ROADMAP C-ref7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import layers as L
 from repro_torch.core import model as M
 from repro_torch.core.exchange import (
     DeviceHaloPlan,
@@ -39,6 +55,7 @@ from repro_torch.core.exchange import (
     stack_halo_plan,
     stack_hier_plan,
 )
+from repro_torch.core.layers import gat_aggregate, gat_aggregate_bucketed
 from repro_torch.core.randomness import GeneratorRandomness
 from repro_torch.graph.remote import (
     HierPartitionedGraph,
@@ -48,9 +65,11 @@ from repro_torch.graph.remote import (
 from repro_torch.graph.structure import (
     Graph,
     bucketed_ell_from_csr,
+    ell_from_csr,
     stack_bucketed_ells,
     transpose_csr,
 )
+from repro_torch.kernels.ops import aggregate
 from repro_torch.kernels.seg_aggregate import (
     DeviceBucketedEll,
     bucketed_aggregate,
@@ -63,6 +82,188 @@ from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_
 HIER_INTER_BITS_DEFAULT = 2
 
 NOT_PORTED = "is not ported to PyTorch yet (ROADMAP queue A); use the JAX package"
+
+GAT_NOT_DISTRIBUTED = (
+    "model 'gat' does not train distributed: the JAX package's distributed "
+    "GAT raises a broadcasting error (ROADMAP C-ref7: its layer takes the "
+    "halo aggregation for the attention output); train GAT on one device "
+    "with train_gcn_single, or serve it")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device without a
+    card, and keeps the dense products in full fp32 on the card."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r}: no CUDA card is available (pass "
+                "device='cpu' to run the plain PyTorch path)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+# --------------------------------------------------------------------------
+# Single-device path
+# --------------------------------------------------------------------------
+
+
+class SingleGraphData(NamedTuple):
+    """One graph's arrays on the device."""
+
+    x: torch.Tensor           # [N, F]
+    labels: torch.Tensor      # [N] int64
+    train_mask: torch.Tensor  # [N] bool
+    eval_mask: torch.Tensor   # [N] bool
+    ell_idx: torch.Tensor     # [N, max degree] int32 dense ELL (or [N, 1] zeros)
+    ell_w: torch.Tensor       # [N, max degree] f32
+    ell_valid: torch.Tensor   # [N, max degree] bool
+    # The shared degree-bucketed layout and the reverse graph's, which
+    # drives the backward: every model's aggregation consumes it.
+    ell: Optional[DeviceBucketedEll] = None
+    ell_t: Optional[DeviceBucketedEll] = None
+
+
+def prepare_single(g: Graph, x: np.ndarray, eval_mask: Optional[np.ndarray] = None,
+                   norm: str = "mean",
+                   layouts: Tuple[str, ...] = ("dense", "bucketed"),
+                   device="cuda") -> SingleGraphData:
+    """``layouts`` trims the prepared neighbour layouts: "dense" is the
+    max-degree ELL (``make_single_agg_fn(use_kernel=True)``; its padding
+    blows up as rows x max degree on power-law graphs), "bucketed" the
+    degree-bucketed layout with its reverse (every model's training
+    path). The default builds both, as the JAX package's does;
+    ``train_gcn_single`` builds the bucketed one only."""
+    dev = resolve_device(device)
+    gn = g.gcn_normalized() if norm == "gcn" else g.mean_normalized()
+    csr = gn.csr_by_dst()
+    train = g.train_mask if g.train_mask is not None else np.ones(g.num_nodes, bool)
+    if eval_mask is None:
+        eval_mask = ~train
+    if "dense" in layouts:
+        idx, w, valid = ell_from_csr(csr)
+    else:
+        idx = np.zeros((g.num_nodes, 1), np.int32)
+        w = np.zeros((g.num_nodes, 1), np.float32)
+        valid = np.zeros((g.num_nodes, 1), bool)
+    ell = ell_t = None
+    if "bucketed" in layouts:
+        ell = device_bucketed(stack_bucketed_ells([bucketed_ell_from_csr(csr)]),
+                              device=dev)
+        ell_t = device_bucketed(
+            stack_bucketed_ells([bucketed_ell_from_csr(transpose_csr(csr))]),
+            device=dev)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return SingleGraphData(
+        x=t(x, torch.float32), labels=t(g.labels, torch.int64),
+        train_mask=t(train, torch.bool), eval_mask=t(eval_mask, torch.bool),
+        ell_idx=t(idx, torch.int32), ell_w=t(w, torch.float32),
+        ell_valid=t(valid, torch.bool), ell=ell, ell_t=ell_t)
+
+
+def make_single_agg_fn(cfg: M.GCNConfig, data: SingleGraphData, params_getter,
+                       use_kernel: bool = False):
+    """``agg_fn(layer, h)`` over the whole graph.
+
+    GAT: its attention layer, over the bucketed layout when prepared,
+    else over the dense ELL. The linear models: the bucketed layout,
+    differentiable (the kernel both ways on the card); with
+    ``use_kernel``, or without a bucketed layout, the dense ELL through
+    ``ops.aggregate`` (one kernel launch on the card, forward only), as
+    the JAX package's ``use_kernel`` path.
+    """
+    def agg_fn(l: int, h: torch.Tensor) -> torch.Tensor:
+        if cfg.model == "gat":
+            p = params_getter()["layers"][l]
+            if data.ell is not None:
+                return gat_aggregate_bucketed(p, h, data.ell, h.shape[0],
+                                              cfg.gat_heads)
+            return gat_aggregate(p, h, data.ell_idx, data.ell_valid, cfg.gat_heads)
+        if data.ell is not None and not use_kernel:
+            return bucketed_aggregate(h, data.ell, ell_t=data.ell_t)
+        return aggregate(h, data.ell_idx, data.ell_w)
+    return agg_fn
+
+
+def _grads(loss: torch.Tensor, params):
+    """d loss / d params as a tree like ``params`` (zeros where unused)."""
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(p)
+              for g, p in zip(grads, leaves))
+    return tree_map(lambda _: next(it), params)
+
+
+def single_train_step(params, opt_state, cfg: M.GCNConfig, data: SingleGraphData,
+                      randomness, epoch: int, lr: float = 0.01):
+    """One full-graph step: (params, opt_state, {"loss", "train_acc"}).
+
+    ``randomness`` draws epoch ``epoch``'s label-propagation selection
+    (shape ``[N]``) and dropout masks (``[N, F]`` per layer) by name
+    (``core.randomness``); the JAX package derives them from
+    ``PRNGKey(seed * 100003 + epoch)``."""
+    dev = data.x.device
+    if cfg.label_prop:
+        sel = randomness.lp_select(epoch, tuple(data.train_mask.shape), cfg.lp_rate, dev)
+        prop_mask, loss_mask = M.lp_masks(sel, data.train_mask)
+    else:
+        prop_mask, loss_mask = torch.zeros_like(data.train_mask), data.train_mask
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    keep = lambda l, shape: randomness.dropout_keep(epoch, l, shape,
+                                                    1.0 - cfg.dropout, dev)
+    logits = M.forward(p, cfg, data.x, data.labels, prop_mask,
+                       make_single_agg_fn(cfg, data, lambda: p), dropout_keep=keep)
+    ls, correct, cnt = M.loss_and_metrics(logits, data.labels, loss_mask)
+    cnt = torch.clamp(cnt, min=1.0)
+    loss = ls / cnt
+    params, opt_state = adamw_update(_grads(loss, p), opt_state, params, lr)
+    return params, opt_state, {"loss": loss.detach(), "train_acc": correct / cnt}
+
+
+def single_eval(params, cfg: M.GCNConfig, data: SingleGraphData) -> float:
+    """Eval accuracy: every train label propagated, scored on eval nodes."""
+    prop = data.train_mask if cfg.label_prop else torch.zeros_like(data.train_mask)
+    with torch.no_grad():
+        logits = M.forward(params, cfg, data.x, data.labels, prop,
+                           make_single_agg_fn(cfg, data, lambda: params))
+        _, correct, cnt = M.loss_and_metrics(logits, data.labels, data.eval_mask)
+        return float(correct / torch.clamp(cnt, min=1.0))
+
+
+def train_gcn_single(g: Graph, x: np.ndarray, cfg: M.GCNConfig, epochs: int,
+                     lr: float = 0.01, seed: int = 0, log_every: int = 0,
+                     device="cuda", params: Optional[Dict] = None,
+                     randomness=None):
+    """Train ``cfg`` on the whole graph ``g`` on ``device`` (the card
+    unless the caller asks for the CPU; raises if the card is missing).
+    ``params`` default to ``M.init_params`` drawn from ``seed``,
+    ``randomness`` to :class:`GeneratorRandomness` seeded from ``seed``.
+    Returns (params, history), history holding the loss and eval accuracy
+    every ``log_every`` epochs and at the last."""
+    dev = resolve_device(device)
+    data = prepare_single(g, x, layouts=("bucketed",), device=dev)
+    if params is None:
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    params = M.to_device(params, dev)
+    opt_state = adamw_init(params)
+    randomness = randomness if randomness is not None else GeneratorRandomness(seed)
+    history = []
+    for e in range(epochs):
+        params, opt_state, m = single_train_step(params, opt_state, cfg, data,
+                                                 randomness, e, lr)
+        if log_every and (e % log_every == 0 or e == epochs - 1):
+            history.append({"epoch": e, "loss": float(m["loss"]),
+                            "eval_acc": single_eval(params, cfg, data)})
+    return params, history
+
+
+# --------------------------------------------------------------------------
+# Distributed path (stacked on one device)
+# --------------------------------------------------------------------------
 
 
 class WorkerData(NamedTuple):
@@ -318,20 +519,6 @@ def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
     return logits, new_cache
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for a CUDA device without a
-    card, and keeps the dense products in full fp32 on the card."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r}: no CUDA card is available (pass "
-                "device='cpu' to run the plain PyTorch path)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
-
-
 class DistributedTrainer:
     """Drives the stacked per-worker step (the JAX package's vmap mode).
 
@@ -346,7 +533,7 @@ class DistributedTrainer:
         if mode != "vmap":
             raise NotImplementedError(f"exec.mode={mode!r} {NOT_PORTED}")
         if cfg.model == "gat":
-            raise NotImplementedError(L.GAT_NOT_PORTED)
+            raise NotImplementedError(GAT_NOT_DISTRIBUTED)
         self.cfg, self.dc, self.wd, self.mode = cfg, dc, wd, mode
         self.device = wd.x.device
         self.schedule = dc.schedule()
@@ -400,11 +587,7 @@ class DistributedTrainer:
         ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
         gcnt = cnt.sum()
         loss = ls.sum() / torch.clamp(gcnt, min=1.0)
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(self.dc.nparts * loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p)
-                  for g, p in zip(grads, leaves))
-        grads = tree_map(lambda _: next(it), params)
+        grads = _grads(self.dc.nparts * loss, params)
         metrics = {"loss": loss.detach(),
                    "train_acc": correct.sum() / torch.clamp(gcnt, min=1.0)}
         return grads, metrics, (cache if self.use_cache else None)
@@ -438,12 +621,62 @@ class DistributedTrainer:
                 history.append(m)
         return history
 
+    # -- checkpoint/resume -------------------------------------------------
+
+    def _cache_lead(self) -> Tuple[int, ...]:
+        """The halo cache's worker axes as the JAX package stores them:
+        ``(G, W)`` under its nested hierarchical vmap, ``(P,)`` flat."""
+        if self.dc.hierarchical:
+            return (self.dc.num_groups, self.dc.group_size)
+        return (self.dc.nparts,)
+
+    def train_state(self) -> Dict:
+        """The resumable state tree, keyed as the JAX package's: params,
+        AdamW state and (for delayed-exchange schedules) the per-stage halo
+        cache, reshaped from ``[P, rows, F]`` to the JAX package's worker
+        axes. Every epoch's random draws derive from the epoch number, so
+        this plus ``epoch`` reproduces the uninterrupted trajectory bit
+        for bit."""
+        state = {"params": self.params, "opt_state": self.opt_state}
+        if self.use_cache:
+            self._ensure_cache()
+            lead = self._cache_lead()
+            state["cache"] = [tuple(c.reshape(*lead, *c.shape[1:]) for c in layer)
+                              for layer in self._cache]
+        return state
+
+    def save_train_state(self, manager, meta: Optional[Dict] = None):
+        """Snapshot into a :class:`repro_torch.checkpoint.CheckpointManager`
+        at step == epoch (atomic write + retention happen inside)."""
+        m = dict(meta or {})
+        m.setdefault("epoch", self.epoch)
+        m.setdefault("mode", self.mode)
+        return manager.save(self.train_state(), step=self.epoch, meta=m)
+
+    def restore_train_state_from(self, manager, step: Optional[int] = None) -> int:
+        """Restore from a manager's checkpoint (the newest valid one when
+        ``step`` is None) and fast-forward ``self.epoch``; returns the
+        restored step. Raises FileNotFoundError when nothing restorable
+        exists."""
+        from repro_torch.checkpoint.ckpt import restore_train_state
+        if step is None:
+            valid = manager.valid_steps()
+            if not valid:
+                raise FileNotFoundError(f"no valid checkpoint under {manager.dir}")
+            step = valid[-1]
+        state, manifest = restore_train_state(manager.path_for(step),
+                                              self.train_state())
+        self.params = state["params"]
+        self.opt_state = state["opt_state"]
+        if self.use_cache:
+            p = self.dc.nparts
+            self._cache = [tuple(c.reshape(p, *c.shape[-2:]) for c in layer)
+                           for layer in state["cache"]]
+        self.epoch = int(manifest.get("meta", {}).get("epoch",
+                                                      manifest.get("step") or step))
+        return step
+
     # -- not ported yet ----------------------------------------------------
-
-    def train_state(self, *args, **kwargs):
-        raise NotImplementedError(f"checkpointing {NOT_PORTED}")
-
-    save_train_state = restore_train_state_from = train_state
 
     def lower_step(self, *args, **kwargs):
         raise NotImplementedError(f"lower_step (the dry-run hook) {NOT_PORTED}")

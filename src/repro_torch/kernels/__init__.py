@@ -4,7 +4,8 @@
 #                    workers, forward and backward (csrc/seg_aggregate.cu)
 #   quant_pack /   — fused stochastic quantize + bit-pack of the halo wire and
 #   dequant_unpack   its inverse (paper §7.3; csrc/quant_pack.cu)
-from repro_torch.kernels.ops import padded_device_bucketed
+from repro_torch.kernels.ops import (aggregate, dequantize_unpack,
+                                     padded_device_bucketed, quantize_pack)
 from repro_torch.kernels.seg_aggregate import (
     DeviceBucketedEll,
     DeviceEllBucket,
@@ -13,6 +14,9 @@ from repro_torch.kernels.seg_aggregate import (
 )
 
 __all__ = [
+    "aggregate",
+    "dequantize_unpack",
+    "quantize_pack",
     "DeviceBucketedEll",
     "DeviceEllBucket",
     "bucketed_aggregate",

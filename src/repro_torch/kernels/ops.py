@@ -1,7 +1,13 @@
-"""Fixed-shape device layouts for the serving path (counterpart of
-``padded_device_bucketed`` in ``repro/kernels/ops.py``). The quantized
-wire calls ``kernels.quant_pack`` directly: its wrappers already pick the
-kernel or the plain version by device."""
+"""Public wrappers around the hand-written kernels (counterpart of
+``repro/kernels/ops.py``), and the fixed-shape device layouts of the
+serving path (``padded_device_bucketed``).
+
+The JAX package's wrappers switch to their jnp oracles on shapes its
+Pallas kernels cannot take (F not a multiple of 128, rows not a multiple
+of 8). The port's kernels take ragged shapes, so these wrappers never
+switch: a CUDA tensor goes to the kernel (or the wrapper raises), a CPU
+tensor to the plain version, as every wrapper of the port does.
+"""
 
 from __future__ import annotations
 
@@ -10,7 +16,39 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.seg_aggregate import DeviceBucketedEll, DeviceEllBucket
+from repro_torch.kernels.quant_pack import dequant_unpack, quant_pack
+from repro_torch.kernels.seg_aggregate import (DeviceBucketedEll, DeviceEllBucket,
+                                               seg_aggregate)
+
+
+def aggregate(x: torch.Tensor, ell_idx: torch.Tensor, ell_w: torch.Tensor
+              ) -> torch.Tensor:
+    """``out[r] = sum_k ell_w[r, k] * x[ell_idx[r, k]]`` over a dense
+    max-degree ELL (``graph.structure.ell_from_csr``): one launch of the
+    ``seg_aggregate`` kernel on CUDA tensors, the plain version on CPU
+    tensors. Forward only, as the Pallas call it replaces: an ``x`` that
+    needs a gradient is refused on every device (the kernel's output has
+    no ``grad_fn``, so the gradient would be lost on the card alone)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("aggregate: x requires grad; the dense-ELL aggregation "
+                         "is forward only (use kernels.bucketed_aggregate with "
+                         "the reverse layout to differentiate)")
+    return seg_aggregate(x.contiguous(), ell_idx.to(torch.int32).contiguous(),
+                         ell_w.to(torch.float32).contiguous())
+
+
+def quantize_pack(x: torch.Tensor, noise: torch.Tensor, *, bits: int = 2
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(packed, zero, scale) of ``x`` [R, F] (``kernels.quant_pack``). R
+    must be a multiple of 4, as the JAX package's oracle needs for its
+    row-group reshape; any F is taken."""
+    return quant_pack(x, noise, bits)
+
+
+def dequantize_unpack(packed: torch.Tensor, zero: torch.Tensor, scale: torch.Tensor,
+                      *, bits: int = 2, feat: int) -> torch.Tensor:
+    """The inverse of :func:`quantize_pack` (``kernels.dequant_unpack``)."""
+    return dequant_unpack(packed, zero, scale, bits, feat)
 
 
 def padded_device_bucketed(ell, bucket_caps: Sequence[Tuple[int, int]],

@@ -11,8 +11,12 @@ and the accounting (``comm_stats``, ``partition_stats``,
 ``predicted_wire_bytes``). ``build_graph`` and ``build_partition`` are
 public, as there; serving uses them too.
 
+``fit(ckpt_dir=...)`` snapshots the run every ``exec.ckpt_every`` epochs
+into the JAX package's checkpoint format, and ``fit(resume=True)``
+restores the newest valid snapshot first.
+
 Not ported yet (they raise): ``exec.mode`` other than ``vmap``,
-``exec.auto``, checkpoints (``fit(ckpt_dir=...)``) and ``lower``.
+``exec.auto`` and ``lower``.
 """
 
 from __future__ import annotations
@@ -89,20 +93,56 @@ class Session:
 
     def fit(self, epochs: Optional[int] = None,
             log_every: Optional[int] = None,
-            ckpt_dir: Optional[str] = None) -> List[Dict]:
+            ckpt_dir: Optional[str] = None,
+            resume: bool = False) -> List[Dict]:
         """Train for ``epochs`` (default: the spec's) and return history.
 
         ``log_every`` falls back to the spec's, whose 0 means "auto" (~10
         eval points); an explicit 0 skips evals entirely.
+
+        ``ckpt_dir`` turns on periodic checkpointing (atomic snapshots
+        every ``spec.exec.ckpt_every`` epochs, default every epoch) and
+        ``resume=True`` restores the newest valid checkpoint before
+        training — the epoch counter fast-forwards, so a resumed run
+        trains only the remaining epochs and reproduces the uninterrupted
+        trajectory bit for bit (all per-epoch randomness derives from the
+        epoch number).
         """
-        if ckpt_dir is not None:
-            raise NotImplementedError(f"checkpointing {NOT_PORTED}")
         e = self.spec.exec
         n = e.epochs if epochs is None else epochs
         le = e.log_every if log_every is None else log_every
         if not le and log_every is None:
             le = max(n // 10, 1)
-        return self.trainer.fit(n, log_every=le)
+        if ckpt_dir is None:
+            if resume:
+                raise ValueError("resume=True needs ckpt_dir")
+            return self.trainer.fit(n, log_every=le)
+
+        from repro_torch.checkpoint import CheckpointManager
+        every = e.ckpt_every if e.ckpt_every else 1
+        tr = self.trainer
+        mgr = CheckpointManager(ckpt_dir)
+        if resume:
+            try:
+                tr.restore_train_state_from(mgr)
+            except FileNotFoundError as err:
+                raise RuntimeError(
+                    f"resume requested but no valid checkpoint under "
+                    f"{ckpt_dir}") from err
+        # Stamp provenance so a serving deployment can refuse a checkpoint
+        # trained on a different graph (serve/server.py).
+        meta = {"graph_hash": self.spec.graph.content_hash(),
+                "spec_hash": self.spec.content_hash()}
+        history = []
+        while tr.epoch < n:
+            m = tr.train_epoch()
+            if tr.epoch % every == 0 or tr.epoch == n:
+                tr.save_train_state(mgr, meta=meta)
+            if le and (tr.epoch % le == 0 or tr.epoch == n):
+                m["eval_acc"] = tr.evaluate()
+                m["epoch"] = tr.epoch
+                history.append(m)
+        return history
 
     def train_epoch(self) -> Dict[str, float]:
         return self.trainer.train_epoch()

@@ -3,7 +3,9 @@
 Counterpart of ``repro/serve/server.py``. ``build_server(spec)`` lowers a
 :class:`~repro_torch.serve.spec.ServeSpec` onto a live :class:`GNNServer`
 holding the normalized graph, the partition labels (for feature
-ownership) and the model parameters on ``device``.
+ownership) and the model parameters on ``device``: fresh ones drawn from
+``exec.seed``, or the trained ones of ``serve.ckpt``, a checkpoint
+directory of the port's or the JAX package's trainer (same format).
 
 Request path (``serve_batch``), as in the JAX package:
 
@@ -15,7 +17,8 @@ Request path (``serve_batch``), as in the JAX package:
    :class:`~repro_torch.serve.cache.FeatureCache`,
 4. the batch is padded onto a :class:`ShapeLadder` class and the layer
    stack runs on the card, each layer's aggregation one launch of the
-   ``seg_aggregate`` CUDA kernel per non-empty degree bucket.
+   ``seg_aggregate`` CUDA kernel (GAT: its attention in PyTorch, and the
+   weighted sum one launch with the heads stacked).
 
 PyTorch runs eagerly, so there is no program cache to bound; the server
 still pads to shape classes (the fixed shapes a later CUDA-graph capture
@@ -53,8 +56,8 @@ from repro_torch.serve.spec import ServeConfig, ServeSpec
 
 
 class ServeError(RuntimeError):
-    """A serving deployment cannot be built or cannot answer (no card,
-    unported option, malformed request)."""
+    """A serving deployment cannot be built or cannot answer (no card, a
+    checkpoint that cannot be restored, malformed request)."""
 
 
 def _pow2ceil(n: int) -> int:
@@ -134,8 +137,6 @@ class GNNServer:
                  params: Dict, serve_cfg: Optional[ServeConfig] = None,
                  part: Optional[np.ndarray] = None, home: int = 0,
                  device="cuda"):
-        if cfg.model == "gat":
-            raise NotImplementedError(L.GAT_NOT_PORTED)
         self.device = _resolve_device(device)
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
@@ -182,11 +183,15 @@ class GNNServer:
         dev = self.device
         xt = torch.from_numpy(x).to(dev)
         n = xt.shape[0]
+        if self.cfg.model == "gat":
+            agg = lambda l, h: L.gat_aggregate_bucketed(
+                self.params["layers"][l], h, ell, n, self.cfg.gat_heads)
+        else:
+            agg = lambda l, h: bucketed_aggregate(h, ell, n)
         with torch.inference_mode():
             logits = M.forward(
                 self.params, self.cfg, xt, torch.from_numpy(labels).to(dev),
-                torch.from_numpy(prop).to(dev),
-                lambda l, h: bucketed_aggregate(h, ell, n))
+                torch.from_numpy(prop).to(dev), agg)
             return logits.cpu().numpy()
 
     # -- request path ------------------------------------------------------
@@ -295,26 +300,55 @@ class GNNServer:
 # -- spec resolution -------------------------------------------------------
 
 
+def _restore_params(serve_cfg: ServeConfig, run, cfg: M.GCNConfig,
+                    device) -> Dict:
+    """Trained params from ``serve.ckpt`` via the corruption-tolerant
+    ``load_latest()`` path, with a clean error on graph mismatch."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.ckpt import restore_arrays
+
+    mgr = CheckpointManager(serve_cfg.ckpt)
+    ck, step = mgr.load_latest()
+    if ck is None:
+        raise ServeError(
+            f"serve.ckpt={serve_cfg.ckpt!r}: no loadable checkpoint "
+            "(empty directory, or every snapshot corrupt)")
+    meta = ck["manifest"].get("meta", {}) or {}
+    want = run.graph.content_hash()
+    got = meta.get("graph_hash")
+    if got is not None and got != want:
+        raise ServeError(
+            f"checkpoint at step {step} was trained on graph {got} but "
+            f"this server is built on graph {want} — refusing to serve "
+            "logits from mismatched parameters")
+    # The training state is {"params": ..., "opt_state": ...}; serving
+    # restores only the params subtree, matched by key path (extra
+    # optimizer leaves in the checkpoint are simply ignored).
+    template = {"params": M.init_params(cfg, device=device)}
+    try:
+        return restore_arrays(ck["arrays"], template)["params"]
+    except (KeyError, ValueError) as err:
+        raise ServeError(
+            f"checkpoint at step {step} does not fit the serve spec's model "
+            f"section (it must match the training run's): {err}") from err
+
+
 def build_server(spec: ServeSpec, device="cuda") -> GNNServer:
     """Lower a ServeSpec end to end onto a live :class:`GNNServer` on
     ``device`` (the card unless the caller asks for the CPU; raises if the
-    card is missing). Parameters are drawn from ``exec.seed`` with a
-    ``torch.Generator``; restoring ``serve.ckpt`` is not ported yet."""
+    card is missing). Parameters are restored from ``serve.ckpt`` when it
+    is set, else drawn from ``exec.seed`` with a ``torch.Generator``."""
     from repro_torch.run.session import build_graph, build_partition
 
     spec = spec.validate()
     run = spec.run
-    _resolve_device(device)
-    if run.model.model == "gat":
-        raise NotImplementedError(L.GAT_NOT_PORTED)
-    if spec.serve.ckpt:
-        raise ServeError(
-            f"serve.ckpt={spec.serve.ckpt!r}: checkpoint restore is not "
-            "ported to PyTorch yet; serve fresh parameters "
-            "(serve.ckpt='') or use the JAX package")
+    dev = _resolve_device(device)
     g, x = build_graph(run)
     part = build_partition(run, g).part
     cfg = run.model.to_gcn_config(run.graph, run.schedule)
-    params = M.init_params(cfg, torch.Generator().manual_seed(run.exec.seed))
+    if spec.serve.ckpt:
+        params = _restore_params(spec.serve, run, cfg, dev)
+    else:
+        params = M.init_params(cfg, torch.Generator().manual_seed(run.exec.seed))
     return GNNServer(cfg, g, x, params, serve_cfg=spec.serve, part=part,
-                     home=0, device=device)
+                     home=0, device=dev)

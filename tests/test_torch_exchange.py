@@ -137,7 +137,7 @@ def test_assemble_send_and_scatter_recv(setup, level, backend):
     jsend = jax.jit(jax.vmap(jx.assemble_send))(jnp.asarray(h), jp)
     jacc = jax.jit(jax.vmap(lambda a, r, pl: jx.scatter_recv(a, r, pl, backend)))(
         jnp.asarray(h), jnp.asarray(recv), jp)
-    np.testing.assert_allclose(tx.assemble_send(torch.from_numpy(h), tp).numpy(),
+    np.testing.assert_allclose(tx.assemble_send(torch.from_numpy(h), tp, backend).numpy(),
                                np.asarray(jsend), **TOL)
     np.testing.assert_allclose(
         tx.scatter_recv(torch.from_numpy(h), torch.from_numpy(recv), tp, backend).numpy(),

@@ -259,7 +259,7 @@ def test_kernel_repeats_bitwise_on_hub_layouts(cuda, f):
 @pytest.mark.gpu
 @pytest.mark.parametrize("f", [256, 100, 47])
 def test_kernel_on_the_training_layouts(cuda, f):
-    """The six stacked layouts of the small flagship spec (the layouts
+    """The ten stacked layouts of the small flagship spec (the layouts
     tests/test_torch_kernels.py decodes the launch tables of), forward and
     backward, against the plain version."""
     from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
@@ -270,9 +270,128 @@ def test_kernel_on_the_training_layouts(cuda, f):
     lays = [(wd.ell, m, m), (wd.ell_t, m, m)]
     for plan in (wd.hier_plan.intra, wd.hier_plan.inter):
         wire = plan.send_gather_idx.shape[1]
-        lays += [(plan.recv_ell, wire, m), (plan.recv_ell_t, m, wire)]
+        lays += [(plan.recv_ell, wire, m), (plan.recv_ell_t, m, wire),
+                 (plan.pre_ell, m, wire), (plan.pre_ell_t, wire, m)]
     for lay, n_in, n_out in lays:
         x = torch.randn((wd.x.shape[0], n_in, f), device=cuda)
         got = sa._bucketed_forward(x, lay, n_out)
         assert torch.equal(got, sa._bucketed_forward(x, lay, n_out))
         torch.testing.assert_close(got, sa.bucketed_forward_ref(x, lay, n_out), **TOL)
+
+
+# -- single-device training, GAT serving, resume --------------------------------
+
+
+def _sbm(dev, nodes=600, classes=4):
+    from repro_torch.core.trainer import prepare_single
+    from repro_torch.graph import sbm_graph
+    from repro_torch.graph.generators import sbm_features
+
+    g = sbm_graph(nodes, classes, avg_degree=12, homophily=0.85, seed=0)
+    x, _ = sbm_features(g, 16, noise=1.5, seed=1)
+    return g, x, prepare_single(g, x, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [256, 100, 47])
+def test_one_graph_aggregation_backward(cuda, f):
+    """The single-device trainer's aggregation: one graph, forward over
+    ``ell`` and backward over ``ell_t``, one launch each, against the plain
+    version."""
+    _, _, data = _sbm(cuda)
+    n = data.x.shape[0]
+    x = torch.randn((n, f), device=cuda, requires_grad=True)
+    before = (sa.launches, sa.backward_launches)
+    y = sa.bucketed_aggregate(x, data.ell, ell_t=data.ell_t)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert (sa.launches - before[0], sa.backward_launches - before[1]) == (1, 1)
+    torch.testing.assert_close(y, sa.bucketed_forward_ref(x.detach(), data.ell, n), **TOL)
+    torch.testing.assert_close(dx, sa.bucketed_forward_ref(g, data.ell_t, n), **TOL)
+
+
+@pytest.mark.gpu
+def test_dense_ell_aggregate(cuda):
+    """``ops.aggregate`` on the dense max-degree ELL: one launch, against
+    the plain version."""
+    from repro_torch.kernels.ops import aggregate
+
+    _, _, data = _sbm(cuda)
+    x = torch.randn((data.x.shape[0], 256), device=cuda)
+    before = sa.launches
+    got = aggregate(x, data.ell_idx, data.ell_w)
+    assert sa.launches == before + 1
+    torch.testing.assert_close(got, seg_aggregate_ref(x, data.ell_idx, data.ell_w), **TOL)
+
+
+@pytest.mark.gpu
+def test_single_device_training_on_card_matches_cpu(cuda):
+    from repro_torch.core import GCNConfig, GeneratorRandomness, train_gcn_single
+
+    g, x, _ = _sbm(cuda)
+    for model in ("sage", "gat"):
+        cfg = GCNConfig(model=model, in_dim=16, hidden_dim=32, num_classes=4,
+                        num_layers=2, dropout=0.5, label_prop=True)
+        losses = []
+        before = (sa.launches, sa.backward_launches)
+        for dev in (cuda, "cpu"):
+            _, hist = train_gcn_single(
+                g, x, cfg, epochs=3, log_every=1, device=dev,
+                randomness=GeneratorRandomness(0, draw_device="cpu"))
+            losses.append([h["loss"] for h in hist])
+        assert sa.launches > before[0]
+        if model == "sage":
+            assert sa.backward_launches - before[1] == 3 * 2   # 2 layers, 3 epochs
+        np.testing.assert_allclose(losses[0], losses[1], **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_served_equals_full_batch_on_card(cuda, heads):
+    spec = ServeSpec.from_json(json.dumps(FLAGSHIP)).with_overrides(
+        ["model.model=gat", f"model.gat_heads={heads}", "serve.fanouts=full"])
+    server = build_server(spec, device=cuda)
+    full = server.full_batch_logits()
+    reqs = [[1], [50], [200], [7, 8], [90]]
+    before = sa.launches
+    for req, logits in zip(reqs, server.serve_batch(reqs)):
+        assert np.array_equal(logits, full[np.asarray(req)]), req
+    assert sa.launches > before
+
+
+@pytest.mark.gpu
+def test_resume_on_card_is_bitwise(cuda, tmp_path):
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.run import RunSpec, build_session
+
+    spec = lambda n: RunSpec.from_dict(TRAIN_FLAGSHIP).with_overrides([f"exec.epochs={n}"])
+    full = build_session(spec(4), device=cuda)
+    hist = full.fit(log_every=1)
+    build_session(spec(2), device=cuda).fit(log_every=1, ckpt_dir=tmp_path)
+    resumed = build_session(spec(4), device=cuda)
+    assert resumed.fit(log_every=1, ckpt_dir=tmp_path, resume=True) == hist[2:]
+    a, b = _flatten(resumed.trainer.train_state()), _flatten(full.trainer.train_state())
+    assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.gpu
+def test_pre_aggregation_repeats_bitwise(cuda):
+    """The send-side pre-aggregation on the ``ell`` backend runs through
+    the kernel, so its forward and backward repeat bit for bit (the
+    ``coo`` backend's ``index_add`` adds with atomics on the card)."""
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.core.exchange import assemble_send
+    from repro_torch.run import RunSpec, build_session
+
+    wd = build_session(RunSpec.from_dict(TRAIN_FLAGSHIP), device=cuda).wd
+    for plan in (wd.hier_plan.intra, wd.hier_plan.inter):
+        h = torch.randn((wd.x.shape[0], wd.x.shape[1], 100), device=cuda)
+        runs = []
+        for _ in range(3):
+            x = h.clone().requires_grad_(True)
+            y = assemble_send(x, plan, "ell")
+            runs.append((y.detach(), torch.autograd.grad(y, x, torch.ones_like(y))[0]))
+        for y, dx in runs[1:]:
+            assert torch.equal(y, runs[0][0]) and torch.equal(dx, runs[0][1])
+        torch.testing.assert_close(runs[0][0], assemble_send(h, plan, "coo"), **TOL)

@@ -211,10 +211,11 @@ def _padded_graph():
 
 @pytest.fixture(scope="module")
 def train_layouts():
-    """The six stacked layouts of the small flagship spec (the training
-    path's local graph, intra and inter receive scatters and their
-    reverses), a stack in which one worker has no row in a bucket, and a
-    padded one-graph layout as the server builds them."""
+    """The ten stacked layouts of the small flagship spec (the training
+    path's local graph, intra and inter send-side pre-aggregations and
+    receive scatters, and their reverses), a stack in which one worker has
+    no row in a bucket, and a padded one-graph layout as the server builds
+    them."""
     from repro_torch.configs.train_products_paper import FLAGSHIP
     from repro_torch.run import RunSpec, build_session
 
@@ -224,12 +225,15 @@ def train_layouts():
     for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
         lays[name] = (plan.recv_ell, plan.send_gather_idx.shape[1])
         lays[name + "_t"] = (plan.recv_ell_t, m)
+        lays[name + "_pre"] = (plan.pre_ell, m)
+        lays[name + "_pre_t"] = (plan.pre_ell_t, plan.send_gather_idx.shape[1])
     lays["uneven"] = _uneven_stack()
     lays["padded"] = _padded_graph()
     return lays
 
 
-LAYOUTS = ["local", "local_t", "intra", "intra_t", "inter", "inter_t", "uneven", "padded"]
+LAYOUTS = ["local", "local_t", "intra", "intra_t", "inter", "inter_t", "intra_pre",
+           "intra_pre_t", "inter_pre", "inter_pre_t", "uneven", "padded"]
 
 
 @pytest.mark.parametrize("name", LAYOUTS)
@@ -276,3 +280,50 @@ def test_tables_refuse_more_than_16_buckets():
     assert len(sa.launch_table(ok, 8).tile_start) == 16
     with pytest.raises(ValueError, match="at most 16"):
         sa.launch_table(sa.DeviceBucketedEll(tuple(one() for _ in range(17))), 8)
+
+
+# -- kernels/ops.py: the public wrappers ------------------------------------------
+
+
+@pytest.mark.parametrize("n,f,r,k", [(64, 128, 8, 3), (90, 100, 13, 5)])
+def test_ops_aggregate_matches_jax(n, f, r, k):
+    """``ops.aggregate`` on a dense ELL against the JAX package's (its
+    Pallas kernel in interpret mode on the aligned shape, its jnp oracle on
+    the ragged one); forward only."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+
+    x, idx, w = _inputs(n, f, r, k, 3 * n + k)
+    expect = np.asarray(jops.aggregate(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(w)))
+    got = ops.aggregate(torch.from_numpy(x), torch.from_numpy(idx).long(),
+                        torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), expect, **TOL)
+    with pytest.raises(ValueError, match="forward only"):
+        ops.aggregate(torch.from_numpy(x).requires_grad_(True), torch.from_numpy(idx),
+                      torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_ops_quantizer_wrappers_match_jax_oracle(bits):
+    """``ops.quantize_pack`` / ``ops.dequantize_unpack`` equal the JAX
+    package's oracles bit for bit (the oracles divide, as the port does:
+    ROADMAP C-ref2); rows that are not a multiple of 4 are refused by both
+    packages."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(bits)
+    x = rng.normal(size=(16, 64)).astype(np.float32)
+    u = rng.uniform(size=(16, 64)).astype(np.float32)
+    jp, jz, js = jref.quant_pack_ref(jnp.asarray(x), jnp.asarray(u), bits)
+    tp, tz, ts = ops.quantize_pack(torch.from_numpy(x), torch.from_numpy(u), bits=bits)
+    for a, b in ((tp, jp), (tz, jz), (ts, js)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(
+        ops.dequantize_unpack(tp, tz, ts, bits=bits, feat=64).numpy(),
+        np.asarray(jops.dequantize_unpack(jp, jz, js, bits=bits, feat=64,
+                                          use_kernel=False)))
+    with pytest.raises(TypeError):
+        jops.quantize_pack(jnp.asarray(x[:6]), jnp.asarray(u[:6]), bits=bits)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.quantize_pack(torch.from_numpy(x[:6]), torch.from_numpy(u[:6]), bits=bits)

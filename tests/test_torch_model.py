@@ -88,7 +88,26 @@ def test_init_params_keys_shapes_and_seed():
 
 
 def test_gat_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_params(TM.GCNConfig(model="gat"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """GAT is ported for one device and serving: its parameters build under
+    the JAX package's keys and shapes, and the model runs through its
+    attention layer. What stays unported is distributed GAT, which the
+    JAX package cannot train either (ROADMAP C-ref7)."""
+    kw = dict(model="gat", in_dim=IN, hidden_dim=HID, num_classes=4, num_layers=2,
+              gat_heads=4)
+    jparams = JM.init_params(jax.random.PRNGKey(2), JM.GCNConfig(**kw))
+    tparams = TM.init_params(TM.GCNConfig(**kw))
+    for pt, pj in zip(tparams["layers"], jparams["layers"]):
+        assert {k: tuple(v.shape) for k, v in pt.items()} == \
+            {k: tuple(v.shape) for k, v in pj.items()}
+    src, dst, w, x, labels, prop = _graph(20)
+    dt = device_bucketed(stack_bucketed_ells([bucketed_ell_from_csr(
+        coo_to_csr(src, dst, w, N, N))]), device="cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    with torch.no_grad():
+        got = TM.forward(params, TM.GCNConfig(**kw), torch.from_numpy(x),
+                         torch.from_numpy(labels % 4), torch.from_numpy(prop),
+                         lambda l, h: TL.gat_aggregate_bucketed(
+                             params["layers"][l], h, dt, N, 4))
+    assert got.shape == (N, 4) and torch.all(torch.isfinite(got))
+    with pytest.raises(ValueError, match="no linear UPDATE"):
         TL.apply_update("gat", {}, torch.zeros(1), torch.zeros(1))

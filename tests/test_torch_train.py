@@ -231,11 +231,15 @@ def test_unported_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_session(spec, device="cpu")                    # exec.mode=shard_map
     spec = spec.with_overrides(["exec.mode=vmap"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_session(spec.with_overrides(["exec.auto=tuned.json"]), device="cpu")
     sess = build_session(spec, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        sess.fit(1, ckpt_dir="unused")
-    with pytest.raises(NotImplementedError, match="not ported"):
         sess.trainer.lower_step()
+    # Checkpoints are ported (tests/test_torch_ckpt.py); resuming needs a
+    # directory.
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        sess.fit(1, resume=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         build_session(spec)
