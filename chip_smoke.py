@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --wire [TREE]   # phases 1, 2 and 6 only, on the
                                           # kernels of the checkout at TREE
+    python3 chip_smoke.py --experiments   # phase 9's SAGE run, then ROADMAP
+                                          # C2's plain-aggregation run and a
+                                          # rank's cost of the stacked draws
 
 Phases, each printed on its own lines; any failure exits non-zero before
 the result line is printed:
@@ -50,10 +53,15 @@ the result line is printed:
              256, 47), two launches must give the same bits and agree with
              the plain version; each layout is timed at F = 256 beside the
              plain version, torch.sparse.mm and the bound, with one launch
-             per call. Then the launch counts are reset, 4 epochs run
-             (refresh and stale epochs of the inter cache, twice) and the
-             model is evaluated; every kernel must have launched. A fifth, profiled epoch gives the
-             device's busy share and top operations.
+             per call. The send-side pre-aggregation must repeat bitwise
+             forward and backward on the ell and coo backends. Then the
+             launch counts are reset, 4 epochs run (refresh and stale epochs
+             of the inter cache, twice) and the model is evaluated; every
+             kernel must have launched. A fifth, profiled epoch gives the
+             device's busy share and top operations. Then
+             specs/coo_fallback.json (vmap, agg_backend=coo): two runs of 4
+             epochs bitwise equal, and one resumed from epoch 2 bitwise
+             equal to them (ROADMAP C1).
 8. train parity — the small flagship spec (vmap) for 3 epochs on the card
              and on the CPU, randomness drawn on the CPU and copied to both:
              fp32 inter wire within 1e-5, Int2 inter wire within 1e-3.
@@ -74,7 +82,25 @@ the result line is printed:
              bitwise; then build_server with serve.ckpt: parameters equal to
              the trained ones and served logits equal to the full-batch
              forward, bitwise; checkpoint MB, save and restore seconds.
-12. the kernels line (JSON, with each kernel's launches on every path), the
+12. multiproc — train_products_paper as 8 processes sharing the card
+             (exec.mode=multiproc: host mailboxes in shared memory), 4 epochs
+             and one evaluation, held to phase 7's stacked losses (epoch 0
+             within 1e-5, the rest within phase 8's Int2 bar 1e-3); every
+             rank must launch seg_aggregate, its backward, quant_pack and
+             dequant_unpack (ranks report their launches in their epoch
+             stats); epoch ms, mailbox wait_s and wire_bytes of refresh and
+             stale epochs, per-rank RSS and device memory; no leaked
+             segment. Before the fleet starts, every kernel is held at the
+             shapes a rank gives it: seg_aggregate forward and backward on
+             each rank's [1, ...] slice of the ten training layouts (two
+             launches bitwise, bitwise equal to the rank's row of a stacked
+             launch, within 1e-5 of the plain version), and quant_pack and
+             dequant_unpack on the rank's psum-scattered [G*s, F] inter
+             shard at F = 100 and 256, bitwise equal to the plain versions.
+13. recovery — a chaos kill of one rank after epoch 2, with a checkpoint
+             every epoch: losses bitwise equal to phase 12's, no leaked
+             segment; detection, respawn and restore seconds.
+14. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -488,6 +514,30 @@ def parity(dev) -> None:
 WIRE_ROWS = 28032   # Int2 inter wire of train_products_paper: 8 workers x 3504 rows
 
 
+def compare_quant(x, u, bits, f) -> tuple:
+    """quant_pack and dequant_unpack vs their plain versions on one input;
+    fails unless bitwise equal. Returns max |kernel - plain| over the
+    dequantized values of quant_pack's output and of dequant_unpack."""
+    import torch
+
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels.ref import dequant_unpack_ref, quant_pack_ref
+
+    got = qp.quant_pack(x, u, bits)
+    want = quant_pack_ref(x, u, bits)
+    for name, a, b in zip(("packed", "zero", "scale"), got, want):
+        if not torch.equal(a, b):
+            fail(f"quant_pack {tuple(x.shape)} bits={bits}: {name} differs from the "
+                 f"plain version in {int((a != b).sum())} places")
+    plain = dequant_unpack_ref(*want, bits, f)
+    deq = qp.dequant_unpack(*want, bits, f)
+    if not torch.equal(deq, plain):
+        fail(f"dequant_unpack {tuple(x.shape)} bits={bits}: differs from the plain "
+             "version")
+    return (float((dequant_unpack_ref(*got, bits, f) - plain).abs().max()),
+            float((deq - plain).abs().max()))
+
+
 def check_quant_kernels(dev) -> dict:
     """quant_pack / dequant_unpack vs their plain versions, bitwise, at the
     wire's shape; times at F = 256 and F = 100, bits = 2."""
@@ -496,23 +546,6 @@ def check_quant_kernels(dev) -> dict:
 
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels.ref import dequant_unpack_ref, quant_pack_ref
-
-    def compare(x, u, bits, f) -> tuple:
-        """Kernel vs plain on one input; fails unless bitwise equal. Returns
-        max |kernel - plain| over the dequantized values of quant_pack's
-        output and of dequant_unpack."""
-        got = qp.quant_pack(x, u, bits)
-        want = quant_pack_ref(x, u, bits)
-        for name, a, b in zip(("packed", "zero", "scale"), got, want):
-            if not torch.equal(a, b):
-                fail(f"quant_pack bits={bits} F={f}: {name} differs from the plain "
-                     f"version in {int((a != b).sum())} places")
-        plain = dequant_unpack_ref(*want, bits, f)
-        deq = qp.dequant_unpack(*want, bits, f)
-        if not torch.equal(deq, plain):
-            fail(f"dequant_unpack bits={bits} F={f}: differs from the plain version")
-        return (float((dequant_unpack_ref(*got, bits, f) - plain).abs().max()),
-                float((deq - plain).abs().max()))
 
     rng = np.random.default_rng(3)
     errs = {"quant_pack": 0.0, "dequant_unpack": 0.0}
@@ -527,8 +560,8 @@ def check_quant_kernels(dev) -> dict:
             x[8:12] = 0.25                          # a group with an empty range
             u = rng.uniform(size=(WIRE_ROWS, f)).astype(np.float32)
             u[:4] = np.float32(1.0) - np.float32(2.0**-24)  # noise next to 1
-            note(compare(torch.from_numpy(x).to(dev), torch.from_numpy(u).to(dev),
-                         bits, f))
+            note(compare_quant(torch.from_numpy(x).to(dev),
+                               torch.from_numpy(u).to(dev), bits, f))
     print(f"[wire] quant_pack and dequant_unpack equal their plain versions bitwise "
           f"(packed words, zero, scale, dequantized values) at {WIRE_ROWS} rows, "
           f"bits in (2, 4, 8), F in (100, 256, 47)", flush=True)
@@ -545,7 +578,7 @@ def check_quant_kernels(dev) -> dict:
     for f in (256, 100):
         x = torch.from_numpy(rng.normal(size=(WIRE_ROWS, f)).astype(np.float32)).to(dev)
         u = torch.rand((WIRE_ROWS, f), device=dev)
-        note(compare(x, u, bits, f))
+        note(compare_quant(x, u, bits, f))
         packed, zero, scale = qp.quant_pack(x, u, bits)
         words = packed.shape[1]
         for name, kernel, plain, nbytes in (
@@ -716,10 +749,10 @@ def check_train_kernels(session, dev) -> dict:
 
 def pre_aggregation_repeats(session, dev) -> dict:
     """The send-side pre-aggregation of each stage (``assemble_send``)
-    repeated three times on the same input at F=256, forward and backward:
-    on the ``ell`` backend (the kernel; must repeat bitwise, or a resumed
-    run could not equal an uninterrupted one) and on the ``coo`` parity
-    backend (``index_add``, atomics on the card; printed only)."""
+    repeated three times on the same input at F=256, forward and backward,
+    on the ``ell`` backend (the kernel) and on the ``coo`` backend (the
+    sorted scatter-add): each must repeat bitwise, or a resumed run could
+    not equal an uninterrupted one."""
     import torch
 
     from repro_torch.core.exchange import assemble_send
@@ -740,18 +773,53 @@ def pre_aggregation_repeats(session, dev) -> dict:
     print("[train] send-side pre-aggregation repeated 3 times at F=256, (forward, "
           "backward) bitwise: " + ", ".join(f"{k} {v}" for k, v in out.items()),
           flush=True)
-    if not all(out["intra ell"] + out["inter ell"]):
-        fail("the kernel's send-side pre-aggregation does not repeat bit for bit")
+    bad = [k for k, v in out.items() if not all(v)]
+    if bad:
+        fail(f"the send-side pre-aggregation does not repeat bit for bit: {bad}")
     return out
+
+
+def coo_phase(dev) -> dict:
+    """specs/coo_fallback.json (vmap, ``agg_backend="coo"``) on the card:
+    two runs of 4 epochs with an eval after each must be bitwise equal, and
+    2 epochs checkpointed then resumed to 4 must equal the uninterrupted
+    run, losses and state (ROADMAP C1)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.run import RunSpec, build_session
+
+    spec = lambda n: RunSpec.load(ROOT / "specs" / "coo_fallback.json").with_overrides(
+        [f"exec.epochs={n}"])
+
+    def same(a, b) -> bool:
+        fa, fb = _flatten(a.trainer.train_state()), _flatten(b.trainer.train_state())
+        return sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    runs = [build_session(spec(4), device=dev) for _ in range(2)]
+    hists = [r.fit(log_every=1) for r in runs]
+    with tempfile.TemporaryDirectory() as d:
+        build_session(spec(2), device=dev).fit(log_every=1, ckpt_dir=d)
+        resumed = build_session(spec(4), device=dev)
+        tail = resumed.fit(log_every=1, ckpt_dir=d, resume=True)
+    r = {"repeat": hists[0] == hists[1] and same(*runs),
+         "resume": tail == hists[0][2:] and same(resumed, runs[0]),
+         "losses": [h["loss"] for h in hists[0]]}
+    print(f"[coo] specs/coo_fallback.json (vmap, agg_backend=coo) on the card, 4 epochs: "
+          f"losses {r['losses']}; two runs bitwise (losses, eval, state) {r['repeat']}; "
+          f"resumed from epoch 2 bitwise {r['resume']}", flush=True)
+    if not (r["repeat"] and r["resume"]):
+        fail("the coo backend does not repeat or resume bit for bit on the card")
+    return r
 
 
 def counts() -> dict:
     """Every kernel's launch count so far."""
-    from repro_torch.kernels import quant_pack as qp
-    from repro_torch.kernels import seg_aggregate as sa
+    from repro_torch.kernels import launch_counts
 
-    return {"seg_aggregate": sa.launches, "seg_aggregate_backward": sa.backward_launches,
-            "quant_pack": qp.pack_launches, "dequant_unpack": qp.unpack_launches}
+    return launch_counts()
 
 
 def reset_counts() -> None:
@@ -969,6 +1037,48 @@ def single_phase(label: str, g, x, cfg, dev) -> dict:
             "epoch_ms": ms, "launches": launched, "data": data}
 
 
+def c2_plain_aggregation(g, x, cfg, dev, single: dict) -> dict:
+    """ROADMAP C2: phase 9's free-running run repeated on the card with the
+    plain aggregation (``bucketed_forward_ref``) in place of the kernel,
+    forward and backward, from the same parameters and draws; its gap to
+    the CPU run beside the kernel's. The wrapper's dispatch is replaced for
+    this run only and restored after it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GeneratorRandomness, train_gcn_single
+    from repro_torch.core import model as M
+    from repro_torch.kernels import seg_aggregate as sa
+
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    kernel = sa._bucketed_forward
+    sa._bucketed_forward = (lambda x, ell, out_rows, backward=False:
+                            sa.bucketed_forward_ref(x, ell, out_rows))
+    try:
+        reset_counts()
+        _, hist = train_gcn_single(g, x, cfg, SINGLE_EPOCHS, log_every=1, device=dev,
+                                   params=params,
+                                   randomness=GeneratorRandomness(0, draw_device="cpu"))
+        launched = counts()
+    finally:
+        sa._bucketed_forward = kernel
+    if launched["seg_aggregate"] or launched["seg_aggregate_backward"]:
+        fail("the plain-aggregation run launched the kernel")
+    plain = np.asarray([h["loss"] for h in hist])
+    cpu, card = np.asarray(single["cpu_losses"]), np.asarray(single["losses"])
+    r = {"plain_losses": plain.tolist(),
+         "plain_vs_cpu": float(np.abs(plain - cpu).max()),
+         "kernel_vs_cpu": single["max_free_run_diff"],
+         "plain_vs_kernel": float(np.abs(plain - card).max())}
+    print(f"[c2] single sage, {SINGLE_EPOCHS} epochs free-running: card with the plain "
+          f"aggregation {r['plain_losses']}; gap to the CPU: plain {r['plain_vs_cpu']:.3e}, "
+          f"kernel {r['kernel_vs_cpu']:.3e}; plain vs kernel on the card "
+          f"{r['plain_vs_kernel']:.3e}", flush=True)
+    if not np.all(np.isfinite(plain)):
+        fail("the plain-aggregation run's losses are not finite")
+    return r
+
+
 def single_kernel_numbers(data, g, dev) -> dict:
     """The one-graph training layout at F=256: the forward over ``ell``
     and the backward over ``ell_t`` (autograd through the kernel) against
@@ -1104,6 +1214,240 @@ def ckpt_phase(dev) -> dict:
     return {"launches": launched, "mb": mb, "save_s": save_s, "restore_s": restore_s}
 
 
+# -- phases 12 and 13: multi-process training and recovery on the card ----------
+
+MP_RANKS = 8
+
+
+def rank_draw_cost(dev) -> dict:
+    """What drawing the stacked shape costs a rank: one epoch's draws of
+    train_products_paper (label propagation, dropout per layer, the Int2
+    inter wire's forward and backward uniforms per layer) at the stacked
+    shape [8, ...], as each rank draws them, against its own row's shape."""
+    import torch
+
+    from repro_torch.core import GeneratorRandomness
+
+    rnd = GeneratorRandomness(0)
+    rows, wire, dims = 2239, 3504, (100, 256, 256)
+
+    def epoch(p):
+        rnd.lp_select(0, (p, rows), 0.5, dev)
+        for l, f in enumerate(dims):
+            rnd.dropout_keep(0, l, (p, rows, f), 0.5, dev)
+            for backward in (False, True):
+                rnd.quant_uniform(0, l, 1, backward, (p, wire, f), dev)
+
+    out = {}
+    for p in (MP_RANKS, 1):
+        epoch(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            epoch(p)
+        torch.cuda.synchronize()
+        out[p] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"[multiproc] one rank's draws for an epoch (host clock, synchronized): "
+          f"stacked shape [8, ...] {out[MP_RANKS]:.3f} ms, its own row [1, ...] "
+          f"{out[1]:.3f} ms", flush=True)
+    return {"stacked_ms": out[MP_RANKS], "own_row_ms": out[1]}
+
+
+def check_rank_kernels(rt, dev) -> dict:
+    """Every kernel of the multiproc path at the shapes a rank gives it,
+    before the fleet starts. seg_aggregate forward and backward on each
+    rank's ``[1, ...]`` slice of the ten training layouts, built from the
+    runtime's store arrays as the rank builds them: two launches bitwise,
+    bitwise equal to that rank's row of one stacked launch, and within
+    rtol = atol = TOL of the plain version. quant_pack and dequant_unpack
+    on the rows each quantized stage of a rank covers (the psum-scattered
+    [G*s, F] shard of the grouped inter stage) at every layer's width:
+    bitwise equal to the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import seg_aggregate as sa
+    from repro_torch.launch.multiproc import _rank_ell
+
+    arrays, meta = rt._arrays, rt._meta
+    m = arrays["x"].shape[1]
+    layouts = [("local", "ell", meta["ell_ks"], m, m, False),
+               ("local_t", "ellt", meta["ellt_ks"], m, m, True)]
+    for level, ks in meta["plans"].items():
+        wire, pre = meta["wire_rows"][level], f"plan.{level}"
+        layouts += [(f"{level} pre", f"{pre}.pell", ks["pell_ks"], m, wire, False),
+                    (f"{level} pre_t", f"{pre}.pellt", ks["pellt_ks"], wire, m, True),
+                    (f"{level} receive", f"{pre}.rell", ks["rell_ks"], wire, m, False),
+                    (f"{level} receive_t", f"{pre}.rellt", ks["rellt_ks"], m, wire,
+                     True)]
+    worst = {"seg_aggregate": 0.0, "seg_aggregate_backward": 0.0}
+    for name, prefix, ks, n_in, n_out, bwd in layouts:
+        stacked = sa.device_bucketed(
+            [(k, *(arrays[f"{prefix}.{i}.{a}"] for a in ("rows", "idx", "w")))
+             for i, k in enumerate(ks)], device=dev, squeeze=False)
+        for f in sorted(set(meta["feat_dims"])):
+            x = torch.randn((rt.nprocs, n_in, f), device=dev)
+            whole = sa._bucketed_forward(x, stacked, n_out, backward=bwd)
+            for r in range(rt.nprocs):
+                lay = _rank_ell(arrays, prefix, ks, r, dev)
+                xr = x[r:r + 1].contiguous()
+                y = sa._bucketed_forward(xr, lay, n_out, backward=bwd)
+                if not torch.equal(y, sa._bucketed_forward(xr, lay, n_out, backward=bwd)):
+                    fail(f"rank {r} {name} F={f}: two launches differ")
+                if not torch.equal(y[0], whole[r]):
+                    fail(f"rank {r} {name} F={f}: differs from its row of the "
+                         "stacked launch")
+                k = "seg_aggregate_backward" if bwd else "seg_aggregate"
+                worst[k] = max(worst[k], max_err(y, sa.bucketed_forward_ref(xr, lay, n_out)))
+    print(f"[multiproc] seg_aggregate forward and backward on every rank's [1, ...] "
+          f"slice of the {len(layouts)} training layouts at F in "
+          f"{sorted(set(meta['feat_dims']))}: two launches bitwise, bitwise equal to "
+          f"the rank's row of the stacked launch; max abs err to the plain version "
+          f"{worst['seg_aggregate']:.3e} forward, {worst['seg_aggregate_backward']:.3e} "
+          f"backward (rtol=atol={TOL})", flush=True)
+
+    rng = np.random.default_rng(12)
+    shapes = []
+    worst.update(quant_pack=0.0, dequant_unpack=0.0)
+    for stage in rt.schedule.stages:
+        if not stage.bits:
+            continue
+        topo = rt.schedule.topo(stage)
+        rows = meta["wire_rows"][stage.level]
+        qrows = rows if topo.kind == "a2a" else rows // topo.shard_size
+        for f in sorted(set(meta["feat_dims"])):
+            x = torch.from_numpy(rng.normal(size=(qrows, f)).astype(np.float32)).to(dev)
+            u = torch.from_numpy(rng.uniform(size=(qrows, f)).astype(np.float32)).to(dev)
+            for k, e in zip(("quant_pack", "dequant_unpack"),
+                            compare_quant(x, u, stage.bits, f)):
+                worst[k] = max(worst[k], e)
+            shapes.append((stage.level, qrows, f, stage.bits))
+    if not shapes:
+        fail("multiproc: the schedule quantizes no stage")
+    print(f"[multiproc] quant_pack and dequant_unpack equal their plain versions "
+          f"bitwise at each rank's quantized shapes (level, rows, F, bits) {shapes}",
+          flush=True)
+    return {"max_abs_err": worst, "quant_shapes": shapes, "layouts": len(layouts)}
+
+
+def multiproc_phase(dev, stacked: dict) -> dict:
+    """train_products_paper as 8 processes sharing the card
+    (exec.mode=multiproc): 4 epochs and one evaluation, held to phase 7's
+    stacked run from the same parameters and draws (epoch 0 within TOL,
+    the rest within phase 8's Int2 bar, 1e-3). Every rank must launch
+    every kernel; no segment may leak."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.launch.shm_store import leaked_segments
+    from repro_torch.run import build_session
+
+    torch.cuda.empty_cache()
+    spec = train_products_paper("exec.mode=multiproc", f"exec.nprocs={MP_RANKS}")
+    session = build_session(spec, device=dev)
+    rt = session.trainer
+    try:
+        print(f"[multiproc] {spec.describe()}: {rt.dry_plan()}", flush=True)
+        checked = check_rank_kernels(rt, dev)
+        torch.cuda.empty_cache()
+        epochs = []
+        for _ in range(TRAIN_EPOCHS):
+            t0 = time.perf_counter()
+            m = session.train_epoch()
+            m["ms"] = (time.perf_counter() - t0) * 1e3
+            epochs.append(m)
+        acc = session.evaluate()
+        smry = rt.summary()
+        stats, eval_launches = list(rt.epoch_stats), rt.eval_launches
+        ready, token = rt.ready_stats, rt.token
+    finally:
+        session.close()
+    leaked = leaked_segments(token)
+    ref = [m["loss"] for m in stacked["epochs"]]
+    losses = [m["loss"] for m in epochs]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    for i, (m, st) in enumerate(zip(epochs, stats)):
+        kind = "refresh" if i % 2 == 0 else "stale"
+        print(f"[multiproc] epoch {i} ({kind} inter wire): loss {m['loss']:.9f} "
+              f"(stacked {ref[i]:.9f}, diff {diffs[i]:.3e}); {m['ms']:.3f} ms on the "
+              f"host clock{' (includes spawning the fleet)' if i == 0 else ''}, slowest "
+              f"rank {st['epoch_s'] * 1e3:.3f} ms; per rank: host seconds in mailbox "
+              f"rounds (wire_s) {[round(w, 6) for w in st['wire_s']]}, of them waiting "
+              f"on peers (wait_s) {[round(w, 6) for w in st['wait_s']]}; wire_bytes "
+              f"{st['wire_bytes']}", flush=True)
+    print(f"[multiproc] eval accuracy {acc:.4f} (stacked {stacked['eval_acc']:.4f})",
+          flush=True)
+    per_rank = []
+    for r in range(MP_RANKS):
+        total = {k: sum(st["launches"][r][k] for st in stats) + eval_launches[r][k]
+                 for k in eval_launches[r]}
+        per_rank.append(total)
+    launched = {k: sum(t[k] for t in per_rank) for k in per_rank[0]}
+    print(f"[multiproc] kernel launches on the multiproc path (4 epochs + eval), per "
+          f"rank: {per_rank[0]} (rank 0); all ranks: {launched}", flush=True)
+    for r in ready:
+        print(f"[multiproc] rank {r['rank']} RSS before attach "
+              f"{r['rss_before_attach'] / 1e6:.1f} MB, after attach "
+              f"{r['rss_after_attach'] / 1e6:.1f} MB, after its slices "
+              f"{r['rss_after_slices'] / 1e6:.1f} MB", flush=True)
+    for r in smry["ranks"]:
+        mem = ("device memory not measured (not on the card)" if "device_bytes" not in r
+               else f"device memory allocated {r['device_bytes'] / 1e6:.1f} MB, peak "
+               f"{r['device_peak_bytes'] / 1e6:.1f} MB, reserved "
+               f"{r['device_reserved_bytes'] / 1e6:.1f} MB")
+        print(f"[multiproc] rank {r['rank']} at the end: RSS {r['rss_now'] / 1e6:.1f} MB; "
+              f"{mem}; wait_s {r['wait_s']:.6f}, wire_s {r['wire_s']:.6f}, "
+              f"wire_bytes {r['wire_bytes']}", flush=True)
+    print(f"[multiproc] shared store {smry['store_bytes']} B in one copy, mailboxes "
+          f"{smry['mailbox_bytes']} B; parent RSS {smry['parent_rss'] / 1e6:.1f} MB; "
+          f"leaked segments {leaked}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"multiproc: non-finite losses {losses}")
+    if diffs[0] > TOL or max(diffs[1:]) > 1e-3:
+        fail(f"multiproc losses differ from the stacked run's: {diffs} (bars {TOL} "
+             "at epoch 0, 1e-3 after)")
+    for r, total in enumerate(per_rank):
+        for k, v in total.items():
+            if v <= 0:
+                fail(f"multiproc: rank {r} launched no {k} kernel")
+    stale = [st["wire_bytes"][0] for st in stats]
+    if not stale[1] < stale[0]:
+        fail(f"multiproc: a stale epoch wrote no fewer wire bytes than a refresh: {stale}")
+    if leaked:
+        fail(f"multiproc: leaked shared-memory segments {leaked}")
+    return {"losses": losses, "diffs": diffs, "epochs": epochs, "stats": stats,
+            "eval_acc": acc, "launches": launched, "per_rank": per_rank,
+            "checked": checked}
+
+
+def recovery_phase(dev, uninterrupted: dict) -> dict:
+    """A chaos kill of rank 3 at the start of epoch 3 (after 2 completed),
+    with a checkpoint every epoch, against phase 12's uninterrupted run:
+    losses bitwise, no segment leaked."""
+    import tempfile
+
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.launch.chaos import evaluate_case, run_faulted
+
+    spec = train_products_paper("exec.mode=multiproc", f"exec.nprocs={MP_RANKS}",
+                                f"exec.epochs={TRAIN_EPOCHS}", "exec.ckpt_every=1",
+                                "exec.max_restarts=2")
+    with tempfile.TemporaryDirectory() as d:
+        obs = run_faulted(spec, "kill", rank=3, at_epoch=2, ckpt_dir=d, device=dev)
+    case = evaluate_case("kill", 3, 2, uninterrupted["losses"], obs, 0.0)
+    print(f"[recovery] kill of rank 3 after epoch 2: detected {case['detection_kind']} "
+          f"in {case['detection_latency_s']} s, respawn {case['respawn_s']} s, restore "
+          f"{case['restore_s']} s (step {case['restore_step']}), run {case['wall_s']} s; "
+          f"losses {case['faulted_losses']} vs uninterrupted {uninterrupted['losses']}: "
+          f"max diff {case['max_loss_delta']}; leaked {case['leaked_segments']}; "
+          f"checks {case['checks']}", flush=True)
+    if not case["ok"]:
+        fail(f"recovery on the card: {case['checks']} (error {case['error']})")
+    return case
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -1119,6 +1463,23 @@ def wire_only(tree: Path, dev, smi: str) -> None:
     print_ptxas(build.build_logs)
     wire = check_quant_kernels(dev)
     print(json.dumps({"tree": str(tree), "wire": wire}))
+    print(smi)
+
+
+def experiments(dev, smi: str) -> None:
+    """``--experiments``: the two one-off measurements whose readings
+    PERF.md keeps, outside the smoke's phases: ROADMAP C2's
+    plain-aggregation run (after phase 9's SAGE run, which it is compared
+    with) and what drawing the stacked shape costs a rank."""
+    from repro_torch.configs.graphsage_paper import PAPER_PRESETS, gcn_config
+    from repro_torch.kernels import build
+
+    build.build_all()
+    g, x = preset_graph("ogbn-products")
+    cfg = gcn_config(PAPER_PRESETS["ogbn-products"])
+    single = single_phase("single sage", g, x, cfg, dev)
+    c2_plain_aggregation(g, x, cfg, dev, single)
+    rank_draw_cost(dev)
     print(smi)
 
 
@@ -1146,6 +1507,8 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     if sys.argv[1:2] == ["--wire"]:
         return wire_only(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT, dev, smi)
+    if sys.argv[1:2] == ["--experiments"]:
+        return experiments(dev, smi)
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -1187,6 +1550,7 @@ def main() -> None:
     pre_aggregation_repeats(session, dev)
     trained = train_main_path(session)
     del session
+    coo_phase(dev)
     train_parity(dev)
 
     from repro_torch.configs.graphsage_paper import PAPER_PRESETS, gcn_config
@@ -1201,6 +1565,8 @@ def main() -> None:
     del gat["data"], g, x
     gat_served = gat_serve_parity(dev)
     ckpt = ckpt_phase(dev)
+    multi = multiproc_phase(dev, trained)
+    recovery_phase(dev, multi)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -1220,9 +1586,12 @@ def main() -> None:
             **{k: nums[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "launches_per_call",
                                     "ms_after_flush", "F100") if k in nums}})
+    for k in kernels:
+        k["multiproc_max_abs_err"] = multi["checked"]["max_abs_err"][k["name"]]
     paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
              "single_sage": single["launches"], "single_gat": gat["launches"],
-             "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"]}
+             "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
+             "multiproc": multi["launches"]}
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
     for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):

@@ -31,10 +31,16 @@ program takes ``noise(stage, backward, shape) -> [P, rows, F]`` uniforms
 in [0, 1), drawn by the caller (``core.trainer`` passes its step
 randomness).
 
-Delayed stages (``cd > 1``) keep a stale receive buffer per layer; on
-every epoch the wire runs and ``torch.where`` selects the fresh buffer on
-refresh epochs (``epoch % cd == 0``) and the detached stale one otherwise,
-as the JAX package's traced program does.
+Delayed stages (``cd > 1``) keep a stale receive buffer per layer. On a
+refresh epoch (``epoch % cd == 0``) the wire runs; on a stale one it is
+skipped and the detached stale buffer is served. The JAX package's traced
+program runs the wire every epoch and selects with ``where``, whose branch
+not taken contributes only zeros, so the values are the same. ``epoch`` is
+a Python int and the draws are keyed by (epoch, layer, stage), so a
+skipped wire shifts no other draw.
+
+The wire itself is a per-stage transport: :class:`StackedWire` here, the
+mailbox rounds of ``launch.multiproc`` for one OS process per worker.
 """
 
 from __future__ import annotations
@@ -71,10 +77,21 @@ def _take(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _index_add(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
                ) -> torch.Tensor:
-    """``base[p].at[idx[p]].add(vals[p])`` for every worker (out of place)."""
+    """``base[p].at[idx[p]].add(vals[p])`` for every worker (out of place).
+
+    The sum of each row is taken in a fixed order on every device, so a
+    run repeats bit for bit: ``index_add`` adds in index order on the CPU,
+    but with atomics on the card, where ``index_put`` with
+    ``accumulate=True`` sorts the indices (stably) and then adds each
+    row's values in that order."""
     p, n, f = base.shape
-    return base.reshape(p * n, f).index_add(
-        0, segagg.flat_rows(idx, n).reshape(-1), vals.reshape(-1, f)).reshape(p, n, f)
+    flat, rows = base.reshape(p * n, f), segagg.flat_rows(idx, n).reshape(-1)
+    vals = vals.reshape(-1, f)
+    if base.device.type == "cpu":
+        out = flat.index_add(0, rows, vals)
+    else:
+        out = flat.index_put((rows,), vals, accumulate=True)
+    return out.reshape(p, n, f)
 
 
 # --------------------------------------------------------------------------
@@ -100,8 +117,7 @@ class DeviceHaloPlan(NamedTuple):
     recv_ell: Optional[segagg.DeviceBucketedEll] = None
     recv_ell_t: Optional[segagg.DeviceBucketedEll] = None
     # The same for the send side's pre-aggregation (owned rows -> wire
-    # slots): on the card each slot's partials are then summed in a fixed
-    # order by the kernel, where ``index_add`` would add them with atomics.
+    # slots): the ``ell`` backend sums each slot's partials with the kernel.
     pre_ell: Optional[segagg.DeviceBucketedEll] = None
     pre_ell_t: Optional[segagg.DeviceBucketedEll] = None
 
@@ -195,8 +211,8 @@ def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan,
 
     ``agg_backend="ell"`` (with a plan that carries the bucketed layouts)
     sums each slot's partials with the aggregation kernel, forward and
-    backward, in a fixed order; ``"coo"`` adds them with ``index_add``, in
-    index order on the CPU but with atomics in no fixed order on the card.
+    backward, in a fixed order; ``"coo"`` adds them in edge order
+    (:func:`_index_add`).
     """
     raw = torch.where(plan.send_gather_mask[..., None],
                       _take(h, plan.send_gather_idx), 0.0)
@@ -557,95 +573,116 @@ class ExchangeSchedule:
 # --------------------------------------------------------------------------
 
 
+class StackedWire(NamedTuple):
+    """One stage's transport on the stacked worker axis: ``post`` runs the
+    whole exchange (:func:`stage_exchange`) and ``collect`` hands back its
+    receive buffer."""
+
+    topo: StageTopo
+    bits: int
+
+    def post(self, send: torch.Tensor, noise) -> torch.Tensor:
+        return stage_exchange(send, self.topo, self.bits, noise)
+
+    def collect(self, recv: torch.Tensor) -> torch.Tensor:
+        return recv
+
+
 class LayerInFlight(NamedTuple):
     """Per-layer state between the ``issue`` and ``finalize`` phases
-    (see ``repro.core.exchange.LayerInFlight``)."""
+    (see ``repro.core.exchange.LayerInFlight``): per stage, the transport's
+    handle of a posted wire or the stale buffer a skipped one serves."""
 
     h: torch.Tensor
     noise: Optional[Noise]
     epoch: Optional[int]
     cache_entry: Optional[Sequence[torch.Tensor]]
-    recv: Tuple[Optional[torch.Tensor], ...]
-    entry: Tuple[Optional[torch.Tensor], ...]
+    posted: Tuple[Optional[object], ...]
+    stale: Tuple[Optional[torch.Tensor], ...]
 
 
 class LayerProgram:
     """One layer's exchange schedule compiled into (issue, finalize) phases.
 
-    ``issue`` runs every ``overlap`` stage's wire pipeline — inter first —
-    and applies the delayed-comm cache refresh to the receives.
-    ``finalize`` scatters all receives into the accumulator, running any
-    sequential (``overlap=False``) stage's pipeline on the spot. Both phases
-    compute the same receives with the same per-stage noise.
+    ``issue`` posts every ``overlap`` stage's wire — inter first.
+    ``finalize`` collects them and scatters all receives into the
+    accumulator, posting and collecting any sequential (``overlap=False``)
+    stage's wire on the spot. A delayed stage on a stale epoch posts
+    nothing and serves its cached buffer detached.
+
+    ``transports`` gives each stage's ``post(send, noise) -> handle`` and
+    ``collect(handle) -> recv`` (default: :class:`StackedWire`).
     """
 
     def __init__(self, schedule: ExchangeSchedule, wd,
-                 agg_backend: str = "coo"):
-        self.schedule = schedule
+                 agg_backend: str = "coo", transports: Optional[Sequence] = None):
         self.agg_backend = agg_backend
+        if transports is None:
+            transports = [StackedWire(schedule.topo(s), s.bits)
+                          for s in schedule.stages]
         self._stages = tuple(
-            (spec, schedule.plan_for(spec, wd), schedule.topo(spec))
-            for spec in schedule.stages)
+            (spec, schedule.plan_for(spec, wd), wire)
+            for spec, wire in zip(schedule.stages, transports))
         self._cache_slot = {si: ci for ci, si
                             in enumerate(schedule.delayed_indices)}
         self._issue_order = tuple(
             si for si in reversed(range(len(self._stages)))
             if self._stages[si][0].overlap)
 
-    def _wire(self, si: int, h: torch.Tensor, noise: Optional[Noise]
-              ) -> torch.Tensor:
-        spec, plan, topo = self._stages[si]
-        stage_noise = None
-        if noise is not None:
-            stage_noise = lambda backward, shape: noise(si, backward, shape)
-        return stage_exchange(assemble_send(h, plan, self.agg_backend), topo,
-                              spec.bits, stage_noise)
-
-    def _refresh(self, si: int, recv, cache_entry, epoch):
-        """Delayed-comm select: fresh recv on refresh epochs, the stale
-        detached buffer otherwise. Returns (recv, new cache entry)."""
+    def _stale(self, si: int, epoch, cache_entry) -> Optional[torch.Tensor]:
+        """The detached cached buffer a delayed stage serves on a stale
+        epoch, else None (the wire runs)."""
         spec = self._stages[si][0]
+        if not spec.delayed:
+            return None
         if cache_entry is None or epoch is None:
             raise ValueError(
                 f"stage {spec.level!r} is delayed(cd={spec.cd}) "
                 "and needs a halo cache + epoch")
-        refresh = torch.tensor((epoch % spec.cd) == 0, device=recv.device)
-        stale = cache_entry[self._cache_slot[si]].detach()
-        recv = torch.where(refresh, recv, stale)
-        return recv, recv.detach()
+        if int(epoch) % spec.cd == 0:
+            return None
+        return cache_entry[self._cache_slot[si]].detach()
+
+    def _post(self, si: int, h: torch.Tensor, noise: Optional[Noise]):
+        _, plan, wire = self._stages[si]
+        stage_noise = None
+        if noise is not None:
+            stage_noise = lambda backward, shape: noise(si, backward, shape)
+        return wire.post(assemble_send(h, plan, self.agg_backend), stage_noise)
 
     def issue(self, h: torch.Tensor, noise: Optional[Noise],
               cache_entry: Optional[Sequence[torch.Tensor]] = None,
               epoch: Optional[int] = None) -> LayerInFlight:
-        """Run every overlapped stage's wire pipeline (inter first)."""
+        """Post every overlapped stage's wire (inter first)."""
         n = len(self._stages)
-        recv: List[Optional[torch.Tensor]] = [None] * n
-        entry: List[Optional[torch.Tensor]] = [None] * n
+        posted: List[Optional[object]] = [None] * n
+        stale: List[Optional[torch.Tensor]] = [None] * n
         for si in self._issue_order:
-            r = self._wire(si, h, noise)
-            if self._stages[si][0].delayed:
-                r, entry[si] = self._refresh(si, r, cache_entry, epoch)
-            recv[si] = r
+            stale[si] = self._stale(si, epoch, cache_entry)
+            if stale[si] is None:
+                posted[si] = self._post(si, h, noise)
         return LayerInFlight(h=h, noise=noise, epoch=epoch,
                              cache_entry=cache_entry,
-                             recv=tuple(recv), entry=tuple(entry))
+                             posted=tuple(posted), stale=tuple(stale))
 
     def finalize(self, local_agg: torch.Tensor, inflight: LayerInFlight
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """Scatter all receives into the accumulator (running sequential
-        stages' pipelines now). Returns (aggregated output, new cache
-        entry — one buffer per delayed stage in stage order)."""
+        stages' wires now). Returns (aggregated output, new cache entry —
+        one buffer per delayed stage in stage order)."""
         acc = local_agg
         new_entry: List[torch.Tensor] = []
-        for si, (spec, plan, _) in enumerate(self._stages):
-            r = inflight.recv[si]
+        for si, (spec, plan, wire) in enumerate(self._stages):
+            r, handle = inflight.stale[si], inflight.posted[si]
+            if r is None and handle is None:
+                # A sequential (overlap=False) stage: post and collect back
+                # to back, in order.
+                r = self._stale(si, inflight.epoch, inflight.cache_entry)
+                if r is None:
+                    handle = self._post(si, inflight.h, inflight.noise)
             if r is None:
-                r = self._wire(si, inflight.h, inflight.noise)
-                if spec.delayed:
-                    r, e = self._refresh(si, r, inflight.cache_entry,
-                                         inflight.epoch)
-                    new_entry.append(e)
-            elif spec.delayed:
-                new_entry.append(inflight.entry[si])
+                r = wire.collect(handle)
+            if spec.delayed:
+                new_entry.append(r.detach())
             acc = scatter_recv(acc, r, plan, agg_backend=self.agg_backend)
         return acc, tuple(new_entry)

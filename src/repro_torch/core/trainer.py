@@ -31,9 +31,11 @@ schedules, the halo cache) checkpoints into the JAX package's npz format
 epoch number, so a resumed run reproduces the uninterrupted one bit for
 bit.
 
-Not ported yet (they raise): ``exec.mode`` values ``shard_map`` and
-``multiproc``, ``lower_step``, and distributed GAT, which the JAX package
-cannot train either (ROADMAP C-ref7).
+``exec.mode="multiproc"`` (one process per worker) is
+``repro_torch.launch.multiproc``, which runs this module's pieces at
+P = 1 in each rank. Refused (they raise): ``exec.mode="shard_map"`` (one
+card holds no mesh), ``lower_step`` (not ported yet), and distributed
+GAT, which the JAX package cannot train either (ROADMAP C-ref7).
 """
 
 from __future__ import annotations
@@ -82,6 +84,12 @@ from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_
 HIER_INTER_BITS_DEFAULT = 2
 
 NOT_PORTED = "is not ported to PyTorch yet (ROADMAP queue A); use the JAX package"
+
+SHARD_MAP_REFUSED = (
+    "exec.mode='shard_map' needs a mesh of devices, and one card holds none; "
+    "the port's multi-worker modes are 'vmap' (all workers stacked on the "
+    "card) and 'multiproc' (one process per worker, sharing the card through "
+    "host mailboxes); ROADMAP A2 decided to keep refusing shard_map")
 
 GAT_NOT_DISTRIBUTED = (
     "model 'gat' does not train distributed: the JAX package's distributed "
@@ -530,8 +538,13 @@ class DistributedTrainer:
     def __init__(self, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
                  mode: str = "vmap", seed: int = 0, params: Optional[Dict] = None,
                  randomness=None):
+        if mode == "shard_map":
+            raise NotImplementedError(SHARD_MAP_REFUSED)
         if mode != "vmap":
-            raise NotImplementedError(f"exec.mode={mode!r} {NOT_PORTED}")
+            raise ValueError(
+                f"DistributedTrainer runs the stacked mode 'vmap', not "
+                f"{mode!r}; exec.mode='multiproc' runs through build_session "
+                "(repro_torch.launch.multiproc.MultiprocRuntime)")
         if cfg.model == "gat":
             raise NotImplementedError(GAT_NOT_DISTRIBUTED)
         self.cfg, self.dc, self.wd, self.mode = cfg, dc, wd, mode

@@ -13,6 +13,18 @@ from repro_torch.kernels.seg_aggregate import (
     device_bucketed,
 )
 
+
+
+def launch_counts() -> dict:
+    """This process's kernel launches so far, by kernel (each wrapper
+    counts where it launches its kernel)."""
+    from repro_torch.kernels import quant_pack, seg_aggregate
+    return {"seg_aggregate": seg_aggregate.launches,
+            "seg_aggregate_backward": seg_aggregate.backward_launches,
+            "quant_pack": quant_pack.pack_launches,
+            "dequant_unpack": quant_pack.unpack_launches}
+
+
 __all__ = [
     "aggregate",
     "dequantize_unpack",
@@ -21,5 +33,6 @@ __all__ = [
     "DeviceEllBucket",
     "bucketed_aggregate",
     "device_bucketed",
+    "launch_counts",
     "padded_device_bucketed",
 ]

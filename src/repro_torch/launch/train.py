@@ -4,8 +4,9 @@ The port of ``repro.launch.train --gcn``: a :class:`repro_torch.run.RunSpec`
 (``--spec file.json`` + ``--set section.field=value``; without ``--spec``,
 ``configs/train_products_paper``) is lowered by ``build_session`` onto
 ``--device`` (the card by default; it raises if there is none), with all
-workers stacked on that device (``exec.mode=vmap``), and trained for
-``exec.epochs`` epochs. ``--ckpt-dir`` snapshots the run in the JAX
+workers stacked on that device (``exec.mode=vmap``) or one process per
+worker sharing it through host mailboxes (``exec.mode=multiproc``), and
+trained for ``exec.epochs`` epochs. ``--ckpt-dir`` snapshots the run in the JAX
 package's checkpoint format (every ``--ckpt-every`` epochs, default every
 epoch), ``--resume`` continues from the newest valid snapshot there, and
 ``repro_torch.launch.serve --set serve.ckpt=DIR`` serves the trained
@@ -17,6 +18,7 @@ Examples:
       --set exec.mode=vmap --device cpu
   python -m repro_torch.launch.train --set exec.epochs=4 --ckpt-dir runs/products
   python -m repro_torch.launch.train --set exec.epochs=8 --ckpt-dir runs/products --resume
+  python -m repro_torch.launch.train --set exec.mode=multiproc --set exec.epochs=4
 """
 
 from __future__ import annotations
@@ -59,22 +61,33 @@ def main(argv=None) -> int:
             else train_products_paper(*overrides))
     print(f"spec: {spec.describe()}")
     session = build_session(spec, device=args.device)
+    multiproc = spec.exec.mode == "multiproc"
     g, s = session.graph, session.comm_stats()
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
           f"{spec.graph.classes} classes; {spec.partition.nparts} workers "
-          f"stacked on {session.trainer.device}")
+          + (f"in {spec.partition.nparts} processes on {session.trainer.device}"
+             if multiproc else f"stacked on {session.trainer.device}"))
     print(f"partition comm volumes: vanilla={s.vanilla} pre={s.pre} "
           f"post={s.post} hybrid={s.hybrid} (selected={s.selected})")
     print(f"exchange schedule: {session.schedule.describe()}")
     t0 = time.time()
-    hist = session.fit(ckpt_dir=args.ckpt_dir, resume=args.resume)
-    dt = time.time() - t0
-    for h in hist:
-        print(f"epoch {h['epoch']:4d} loss {h['loss']:.4f} "
-              f"train_acc {h['train_acc']:.4f} eval_acc {h.get('eval_acc', 0):.4f}")
-    epochs = spec.exec.epochs
-    print(f"trained {epochs} epochs in {dt:.1f}s "
-          f"({dt / max(epochs, 1) * 1e3:.1f} ms/epoch)")
+    try:
+        hist = session.fit(ckpt_dir=args.ckpt_dir, resume=args.resume)
+        dt = time.time() - t0
+        for h in hist:
+            print(f"epoch {h['epoch']:4d} loss {h['loss']:.4f} "
+                  f"train_acc {h['train_acc']:.4f} eval_acc {h.get('eval_acc', 0):.4f}")
+        epochs = spec.exec.epochs
+        print(f"trained {epochs} epochs in {dt:.1f}s "
+              f"({dt / max(epochs, 1) * 1e3:.1f} ms/epoch)")
+        if multiproc:
+            smry = session.trainer.summary()
+            rss = [r["rss_after_slices"] for r in smry.get("ranks", [])]
+            print(f"multiproc: {smry['nprocs']} procs, shared store "
+                  f"{smry['store_bytes'] / 1e6:.1f} MB (one copy), "
+                  f"rank RSS {[round(r / 1e6, 1) for r in rss]} MB")
+    finally:
+        session.close()
     return 0
 
 

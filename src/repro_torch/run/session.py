@@ -11,12 +11,19 @@ and the accounting (``comm_stats``, ``partition_stats``,
 ``predicted_wire_bytes``). ``build_graph`` and ``build_partition`` are
 public, as there; serving uses them too.
 
-``fit(ckpt_dir=...)`` snapshots the run every ``exec.ckpt_every`` epochs
-into the JAX package's checkpoint format, and ``fit(resume=True)``
-restores the newest valid snapshot first.
+``exec.mode=multiproc`` runs one OS process per partition instead
+(``repro_torch.launch.multiproc.MultiprocRuntime``): the host arrays are
+its shared store, the parent lifts nothing to the device, and each rank
+moves its own slice there. ``Session.close()`` stops the fleet.
 
-Not ported yet (they raise): ``exec.mode`` other than ``vmap``,
-``exec.auto`` and ``lower``.
+``fit(ckpt_dir=...)`` snapshots the run every ``exec.ckpt_every`` epochs
+into the JAX package's checkpoint format (per rank under multiproc, whose
+supervisor also restores from there after a fault), and
+``fit(resume=True)`` restores the newest valid snapshot first.
+
+Refused (they raise): ``exec.mode=shard_map`` (one card holds no
+multi-device mesh; ``core.trainer.SHARD_MAP_REFUSED``), and ``exec.auto``
+and ``lower``, not ported yet.
 """
 
 from __future__ import annotations
@@ -118,26 +125,36 @@ class Session:
                 raise ValueError("resume=True needs ckpt_dir")
             return self.trainer.fit(n, log_every=le)
 
-        from repro_torch.checkpoint import CheckpointManager
         every = e.ckpt_every if e.ckpt_every else 1
         tr = self.trainer
-        mgr = CheckpointManager(ckpt_dir)
-        if resume:
-            try:
-                tr.restore_train_state_from(mgr)
-            except FileNotFoundError as err:
-                raise RuntimeError(
-                    f"resume requested but no valid checkpoint under "
-                    f"{ckpt_dir}") from err
-        # Stamp provenance so a serving deployment can refuse a checkpoint
-        # trained on a different graph (serve/server.py).
-        meta = {"graph_hash": self.spec.graph.content_hash(),
-                "spec_hash": self.spec.content_hash()}
+        save = None
+        if hasattr(tr, "configure_ckpt"):
+            # Multiproc: the ranks snapshot themselves inside train_epoch;
+            # the parent points them at the directory (before they spawn)
+            # and sends the restore command on resume.
+            tr.configure_ckpt(ckpt_dir, every=every)
+            if resume:
+                tr.restore_from_ckpt()
+        else:
+            from repro_torch.checkpoint import CheckpointManager
+            mgr = CheckpointManager(ckpt_dir)
+            if resume:
+                try:
+                    tr.restore_train_state_from(mgr)
+                except FileNotFoundError as err:
+                    raise RuntimeError(
+                        f"resume requested but no valid checkpoint under "
+                        f"{ckpt_dir}") from err
+            # Stamp provenance so a serving deployment can refuse a
+            # checkpoint trained on a different graph (serve/server.py).
+            meta = {"graph_hash": self.spec.graph.content_hash(),
+                    "spec_hash": self.spec.content_hash()}
+            save = lambda: tr.save_train_state(mgr, meta=meta)
         history = []
         while tr.epoch < n:
             m = tr.train_epoch()
-            if tr.epoch % every == 0 or tr.epoch == n:
-                tr.save_train_state(mgr, meta=meta)
+            if save is not None and (tr.epoch % every == 0 or tr.epoch == n):
+                save()
             if le and (tr.epoch % le == 0 or tr.epoch == n):
                 m["eval_acc"] = tr.evaluate()
                 m["epoch"] = tr.epoch
@@ -149,6 +166,19 @@ class Session:
 
     def evaluate(self) -> float:
         return self.trainer.evaluate()
+
+    def close(self) -> None:
+        """Release the trainer's resources (multiproc: stop the fleet and
+        unlink the shared-memory segments); nothing to do when stacked."""
+        close = getattr(self.trainer, "close", None)
+        if close is not None:
+            close()
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- accounting --------------------------------------------------------
 
@@ -180,23 +210,28 @@ def build_session(spec: RunSpec, device="cuda", randomness=None,
     """Lower ``spec`` end to end onto ``device`` (the card unless the
     caller asks for the CPU; raises if the card is missing) and return the
     live :class:`Session`. ``params`` and ``randomness`` default to fresh
-    ones drawn from ``exec.seed``."""
+    ones drawn from ``exec.seed`` (under multiproc ``randomness`` must
+    pickle: every rank gets a copy)."""
     from repro_torch.core import DistributedTrainer
-    from repro_torch.core.trainer import (lift_worker_data,
+    from repro_torch.core.trainer import (SHARD_MAP_REFUSED, lift_worker_data,
                                           prepare_distributed_host,
                                           resolve_device)
 
     spec = spec.validate()
-    if spec.exec.mode != "vmap":
-        raise NotImplementedError(
-            f"exec.mode={spec.exec.mode!r} {NOT_PORTED}; set exec.mode=vmap "
-            "(all workers stacked on one device)")
+    if spec.exec.mode == "shard_map":
+        raise NotImplementedError(SHARD_MAP_REFUSED)
     if spec.exec.auto:
         raise NotImplementedError(f"exec.auto (tuned schedules) {NOT_PORTED}")
     dev = resolve_device(device)
     g, x = build_graph(spec)
     pg = build_partition(spec, g)
-    wd = lift_worker_data(prepare_distributed_host(g, x, pg), device=dev)
+    hwd = prepare_distributed_host(g, x, pg)
+    if spec.exec.mode == "multiproc":
+        from repro_torch.launch.multiproc import MultiprocRuntime
+        runtime = MultiprocRuntime(spec, hwd, device=dev, params=params,
+                                   randomness=randomness)
+        return Session(spec, g, x, pg, hwd, runtime)
+    wd = lift_worker_data(hwd, device=dev)
     dc = spec.schedule.to_dist_config(spec.partition, lr=spec.exec.lr)
     cfg = spec.model.to_gcn_config(spec.graph, spec.schedule)
     trainer = DistributedTrainer(cfg, dc, wd, mode=spec.exec.mode,

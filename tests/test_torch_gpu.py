@@ -12,6 +12,7 @@ of the bar itself.
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -395,3 +396,82 @@ def test_pre_aggregation_repeats_bitwise(cuda):
         for y, dx in runs[1:]:
             assert torch.equal(y, runs[0][0]) and torch.equal(dx, runs[0][1])
         torch.testing.assert_close(runs[0][0], assemble_send(h, plan, "coo"), **TOL)
+
+
+# -- multiproc on the card, recovery, and the coo backend (C1) -------------------
+
+
+@pytest.mark.gpu
+def test_multiproc_on_card_matches_stacked(cuda):
+    """The small flagship spec as 8 processes sharing the card against the
+    stacked run on the card, from the same parameters and draws: epoch 0
+    within 1e-5, the rest within the Int2 wire's 1e-3 (a last-bit change
+    before the stochastic rounding can move an element a whole level).
+    Every rank launches every kernel."""
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.launch.shm_store import leaked_segments
+    from repro_torch.run import RunSpec, build_session
+
+    spec = RunSpec.from_dict(TRAIN_FLAGSHIP).with_overrides(["exec.mode=multiproc"])
+    session = build_session(spec, device=cuda)
+    rt = session.trainer
+    try:
+        mp = [session.train_epoch()["loss"] for _ in range(3)]
+        mp_eval = session.evaluate()
+        stats, token = list(rt.epoch_stats), rt.token
+    finally:
+        session.close()
+    assert leaked_segments(token) == []
+    stacked = build_session(spec.with_overrides(["exec.mode=vmap", "exec.nprocs=0"]),
+                            device=cuda)
+    st = [stacked.train_epoch()["loss"] for _ in range(3)]
+    assert abs(mp[0] - st[0]) <= 1e-5
+    np.testing.assert_allclose(mp[1:], st[1:], atol=1e-3, rtol=0)
+    assert abs(mp_eval - stacked.evaluate()) <= 0.05
+    for rank in range(8):
+        total = {k: sum(s["launches"][rank][k] for s in stats)
+                 for k in stats[0]["launches"][rank]}
+        assert all(v > 0 for v in total.values()), (rank, total)
+
+
+@pytest.mark.gpu
+def test_chaos_kill_on_card_is_bitwise(cuda, tmp_path):
+    from repro_torch.launch.chaos import evaluate_case, run_baseline, run_faulted
+    from repro_torch.run import RunSpec
+
+    spec = RunSpec().with_overrides([
+        "graph.source=sbm", "graph.nodes=96", "graph.classes=4",
+        "graph.feat_dim=16", "graph.feat_noise=2.0", "graph.homophily=0.8",
+        "graph.norm=mean", "partition.nparts=2", "schedule.bits=2",
+        "model.model=sage", "model.hidden_dim=16", "model.num_layers=2",
+        "model.dropout=0.5", "model.label_prop=true", "exec.mode=multiproc",
+        "exec.nprocs=2", "exec.epochs=4", "exec.ckpt_every=1", "exec.max_restarts=2",
+        "exec.heartbeat_s=5.0"])
+    baseline = run_baseline(spec, device=cuda)
+    obs = run_faulted(spec, "kill", rank=1, at_epoch=2, ckpt_dir=str(tmp_path),
+                      device=cuda)
+    case = evaluate_case("kill", 1, 2, baseline, obs, 0.0)
+    assert case["ok"], {k: v for k, v in case.items() if k != "events"}
+    assert case["max_loss_delta"] == 0.0 and case["leaked_segments"] == []
+
+
+@pytest.mark.gpu
+def test_coo_backend_repeats_and_resumes_bitwise(cuda, tmp_path):
+    """``agg_backend="coo"`` (specs/coo_fallback.json) adds in a fixed order
+    on the card (ROADMAP C1): two runs are bitwise equal, and a run
+    resumed from a checkpoint equals the uninterrupted one."""
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.run import RunSpec, build_session
+
+    root = Path(__file__).resolve().parents[1]
+    spec = lambda n: RunSpec.load(root / "specs" / "coo_fallback.json").with_overrides(
+        [f"exec.epochs={n}"])
+    runs = [build_session(spec(4), device=cuda) for _ in range(2)]
+    hists = [s.fit(log_every=1) for s in runs]
+    assert hists[0] == hists[1]
+    build_session(spec(2), device=cuda).fit(log_every=1, ckpt_dir=tmp_path)
+    resumed = build_session(spec(4), device=cuda)
+    assert resumed.fit(log_every=1, ckpt_dir=tmp_path, resume=True) == hists[0][2:]
+    for s in (runs[1], resumed):
+        a, b = _flatten(s.trainer.train_state()), _flatten(runs[0].trainer.train_state())
+        assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)

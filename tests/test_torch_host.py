@@ -42,7 +42,7 @@ SRC = ROOT / "src"
 VERBATIM = ["utils/registry.py", "graph/structure.py", "graph/generators.py",
             "graph/partition.py", "graph/mvc.py", "graph/remote.py",
             "run/sources.py", "serve/spec.py", "serve/egonet.py", "serve/cache.py",
-            "configs/graphsage_paper.py"]
+            "configs/graphsage_paper.py", "launch/shm_store.py", "core/perf_model.py"]
 
 
 def _run_json(graph=None, partition=None):
@@ -300,6 +300,171 @@ def test_to_dist_config_equal():
         assert dj.schedule().describe() == dt.schedule().describe()
 
 
+# -- the shared-memory store and the perf model (A1) -----------------------
+
+
+def _toy_op_table():
+    return [{"id": "t.L0.flat.x", "pairs": [[0, 1, 96], [1, 0, 96], [0, 0, 96]]},
+            {"id": "t.grads", "pairs": [[0, 1, 13], [1, 0, 13]]}]
+
+
+def test_plan_mailbox_equal():
+    from repro.launch.shm_store import plan_mailbox as j_plan
+    from repro_torch.launch.shm_store import plan_mailbox as t_plan
+
+    for nprocs in (0, 2, 8):
+        assert j_plan(_toy_op_table(), nprocs=nprocs) == t_plan(_toy_op_table(),
+                                                                nprocs=nprocs)
+
+
+def test_shm_arena_and_mailbox_round_trip():
+    """Publish a store, attach it as a rank would, post and collect through
+    the mailboxes, and leave no segment behind."""
+    from repro_torch.launch import shm_store as ts
+
+    rng = np.random.default_rng(0)
+    arrays = {"x": rng.normal(size=(2, 5, 3)).astype(np.float32),
+              "labels": np.arange(10, dtype=np.int32).reshape(2, 5),
+              "mask": rng.random((2, 5)) < 0.5}
+    token = ts.run_token()
+    arena, mb, frag = ts.publish_store(token, arrays, _toy_op_table(), nprocs=2)
+    try:
+        assert ts.leaked_segments(token) == sorted([f"{token}-mail", f"{token}-store"])
+        view = ts.ShmArena.attach(frag["store"]["name"], frag["store"]["table"])
+        for k, a in arrays.items():
+            got = view.views()[k]
+            assert got.dtype == a.dtype and np.array_equal(got, a)
+        view.close()
+        r0, r1 = (ts.Mailboxes.attach(frag["mailbox"]["name"], frag["mailbox"], r)
+                  for r in (0, 1))
+        payload = np.arange(24, dtype=np.float32)
+        r0.post("t.L0.flat.x", 1, payload)
+        assert np.array_equal(r1.collect("t.L0.flat.x", 0).view(np.float32), payload)
+        r1.complete("t.L0.flat.x")
+        assert r0.bytes_written == 96 and mb.heartbeats()[0] == 1
+        with pytest.raises(ValueError, match="holds 13 bytes"):
+            r0.post("t.grads", 1, payload)
+        mb.recover()
+        with pytest.raises(ts.TransportRecover):
+            r1.collect("t.grads", 0)
+        for h in (r0, r1):
+            h.close()
+    finally:
+        mb.close()
+        arena.close()
+    assert ts.leaked_segments(token) == []
+
+
+def test_perf_model_equal():
+    """Every public function of the perf model's copy against the
+    reference's on the same inputs."""
+    from repro.core import perf_model as jpm
+    from repro_torch.core import perf_model as tpm
+
+    rng = np.random.default_rng(1)
+    vol = rng.integers(0, 500, size=(4, 4)).astype(np.float64)
+    nnz, rows = rng.integers(100, 900, 4), rng.integers(50, 200, 4)
+    for name in ("abci-xeon6148", "fugaku-a64fx", "tpu-v5e-ici"):
+        hj, ht = jpm.get_hardware(name), tpm.get_hardware(name)
+        assert dataclasses.asdict(hj) == dataclasses.asdict(ht)
+        assert hj.beta == ht.beta
+        np.testing.assert_array_equal(jpm.comm_time_matrix(vol, 64, hj, 2),
+                                      tpm.comm_time_matrix(vol, 64, ht, 2))
+        assert jpm.comm_time(vol, 64, hj) == tpm.comm_time(vol, 64, ht)
+        assert (jpm.quant_comm_time(vol, 64, hj, 2, rows)
+                == tpm.quant_comm_time(vol, 64, ht, 2, rows))
+        assert jpm.delta_ratio(300.0, 64, 2, hj) == tpm.delta_ratio(300.0, 64, 2, ht)
+        for bits in (0, 2):
+            assert (jpm.epoch_time_model(vol, nnz, rows, 100, 256, 3, hj, bits)
+                    == tpm.epoch_time_model(vol, nnz, rows, 100, 256, 3, ht, bits))
+        assert (jpm.hier_epoch_time(1e6, 3e5, nnz, rows, 100, 256, 3, hj)
+                == tpm.hier_epoch_time(1e6, 3e5, nnz, rows, 100, 256, 3, ht))
+    assert jpm.speedup_model(100.0, 50.0, 16.0, 0.3) == tpm.speedup_model(
+        100.0, 50.0, 16.0, 0.3)
+    custom = tpm.HardwareSpec("custom", bw_comm=1e9, latency=1e-6, th_cal=1e11)
+    assert tpm.register_hardware(custom) is tpm.get_hardware("custom")
+    measured = tpm.measure_local_hardware(size_mb=1, iters=1)
+    assert measured.bw_comm > 0 and measured.latency > 0 and measured.th_cal > 0
+
+
+# -- the multiproc op table ---------------------------------------------------
+
+
+def _op_table_pair(spec_json):
+    """(reference op table, port op table) of a spec, from the port's own
+    partition (the plans are held equal above) and parameter count."""
+    from repro.launch.multiproc import build_op_table as j_table
+    from repro_torch.core import model as TM
+    from repro_torch.launch.multiproc import build_op_table as t_table
+    from repro_torch.optim.adamw import tree_leaves
+
+    js, ts = JRunSpec.from_dict(spec_json), TRunSpec.from_dict(spec_json)
+    gt, xt = tsession.build_graph(ts)
+    hwd = t_prepare_host(gt, xt, tsession.build_partition(ts, gt))
+    plans = ({"flat": hwd.plan} if hwd.plan is not None else
+             {"intra": hwd.hier_plan.intra, "inter": hwd.hier_plan.inter})
+    wire_rows = {k: int(p.send_gather_idx.shape[-1]) for k, p in plans.items()}
+    cfg = ts.model.to_gcn_config(ts.graph, ts.schedule)
+    nparams = sum(t.numel() for t in tree_leaves(TM.init_params(cfg)))
+    dims = cfg.dims()[: cfg.num_layers]
+    tables = []
+    for spec, table in ((js, j_table), (ts, t_table)):
+        dc = spec.schedule.to_dist_config(spec.partition, lr=spec.exec.lr)
+        tables.append(table(dc.schedule(), dc.sync_fp32().schedule(),
+                            spec.partition.nparts, cfg.num_layers, dims, wire_rows,
+                            nparams))
+    return tables, dims
+
+
+_TOY_FLAT = {"graph": {"source": "sbm", "nodes": 96, "classes": 4, "feat_dim": 16,
+                       "feat_noise": 2.0, "homophily": 0.8, "norm": "mean"},
+             "partition": {"nparts": 2}, "schedule": {"bits": 2},
+             "model": {"model": "sage", "hidden_dim": 16, "num_layers": 2,
+                       "dropout": 0.0, "label_prop": False},
+             "exec": {"mode": "multiproc", "nprocs": 2}}
+_TOY_HIER = {"graph": {"source": "sbm", "nodes": 128, "classes": 4, "feat_dim": 16,
+                       "feat_noise": 2.0, "homophily": 0.8, "norm": "mean"},
+             "partition": {"nparts": 4, "groups": 2},
+             "schedule": {"inter_bits": 2, "inter_cd": 2, "overlap": True},
+             "model": {"model": "sage", "hidden_dim": 16, "num_layers": 2},
+             "exec": {"mode": "multiproc", "nprocs": 4}}
+
+
+def _paper_spec_json():
+    from repro_torch.configs.train_products_paper import train_products_paper
+    return train_products_paper("exec.mode=multiproc").to_dict()
+
+
+@pytest.mark.parametrize("spec_json", [_TOY_FLAT, _TOY_HIER, None],
+                         ids=["flat_p2", "hier_p4", "train_products_paper"])
+def test_op_table_equal(spec_json):
+    """The port's mailbox op table is the reference's, op for op and pair
+    for pair; a slot's bytes differ only in a quantized chunk's payload at
+    a width that does not fill whole words (layer 0's F = 100 at Int2):
+    the reference sends a byte per value, the port the kernel's
+    ceil(F/16) words."""
+    (jt, tt), dims = _op_table_pair(_paper_spec_json() if spec_json is None
+                                    else spec_json)
+    assert [op["id"] for op in jt] == [op["id"] for op in tt]
+    ragged = 0
+    for jop, top in zip(jt, tt):
+        assert [p[:2] for p in jop["pairs"]] == [p[:2] for p in top["pairs"]]
+        jb, tb = jop["pairs"][0][2], top["pairs"][0][2]
+        assert all(p[2] == jb for p in jop["pairs"]) and all(
+            p[2] == tb for p in top["pairs"])
+        layer = int(jop["id"].split(".")[1][1:]) if ".L" in jop["id"] else None
+        f = dims[layer] if layer is not None else 0
+        if jb != tb:
+            # Only a quantized chunk's payload at a ragged width differs.
+            assert f % 16 != 0, jop["id"]
+            rows = (jb - tb) // (f - 4 * -(-f // 16))
+            assert jb == rows * f + rows // 4 * 8, jop["id"]
+            assert tb == rows * -(-f // 16) * 4 + rows // 4 * 8, jop["id"]
+            ragged += 1
+    # train_products_paper: layer 0's Int2 inter a2a, forward and backward
+    assert ragged == (0 if spec_json is not None else 2)
+
+
 # -- the import guard -------------------------------------------------------
 
 _PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -325,7 +490,9 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_port_serve_loads_without_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.launch.train, repro_torch.run, repro_torch.parity; "
+            "repro_torch.launch.train, repro_torch.run, repro_torch.parity, "
+            "repro_torch.launch.multiproc, repro_torch.launch.chaos, "
+            "repro_torch.core.halo, repro_torch.core.perf_model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -228,7 +228,7 @@ def test_launch_train_cli_on_cpu():
 
 def test_unported_paths_raise(monkeypatch):
     spec = RunSpec.load(ROOT / "specs" / "flagship_hier_int2_overlap.json")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         build_session(spec, device="cpu")                    # exec.mode=shard_map
     spec = spec.with_overrides(["exec.mode=vmap"])
     with pytest.raises(NotImplementedError, match="not ported"):
