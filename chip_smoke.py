@@ -7,6 +7,10 @@
     python3 chip_smoke.py --experiments   # phase 9's SAGE run, then ROADMAP
                                           # C2's plain-aggregation run and a
                                           # rank's cost of the stacked draws
+    python3 chip_smoke.py --tune          # phases 1, 2 and 14 only
+    python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
+                                          # epochs, longer, on the checkout
+                                          # at TREE (for parent/change A/B)
 
 Phases, each printed on its own lines; any failure exits non-zero before
 the result line is printed:
@@ -100,7 +104,30 @@ the result line is printed:
 13. recovery — a chaos kill of one rank after epoch 2, with a checkpoint
              every epoch: losses bitwise equal to phase 12's, no leaked
              segment; detection, respawn and restore seconds.
-14. the kernels line (JSON, with each kernel's launches on every path), the
+14. audit and tune — at the full width of train_products_paper, on the
+             card: the spec matrix (run.matrix over specs/: 8 ok, the two
+             shard_map specs lowered as stacked, multiproc's dry plan, the
+             serve spec served); the audit gate over specs/ and the AST lint
+             over src/repro_torch (zero findings); the audit of
+             train_products_paper (five rules run, zero findings) with its
+             recorded all-to-all bytes per worker beside the prediction, per
+             stage; the audit-gated tuner (run.tune over DEFAULT_AXES, top 3,
+             interleaved stacked probes of whole delay periods, the host's
+             measured HardwareSpec): modelled rows, rejected candidates,
+             measured against modelled epoch ms and the calibration; the
+             result JSON under build/; then 2 epochs with exec.auto set to it
+             against 2 epochs of the winner's spec written out: losses and
+             parameters bitwise, the schedule the winner's. Launch counts are
+             reset just before and read just after: seg_aggregate, its
+             backward and (when a shortlisted schedule quantizes) the
+             quantizer pair must have launched. Then, outside the counts,
+             every kernel against its plain version on the layouts of each
+             shortlisted candidate and each training spec of specs/ (flat
+             and hierarchical; a tuned partition builds other buckets):
+             seg_aggregate forward and backward at F in (100, 256, 47) within
+             1e-5 and two launches bitwise, the quantizer pair bitwise at
+             each quantized stage's wire rows.
+15. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -634,12 +661,15 @@ def _block_diag_csr(lay, out_rows, in_rows, dev):
 
 
 def train_layouts(session) -> list:
-    """The ten stacked layouts of the training path: (name, layout, source
-    rows, output rows, whether it is a backward layout)."""
+    """The stacked layouts of the training path: (name, layout, source
+    rows, output rows, whether it is a backward layout). Ten for a
+    hierarchical schedule, six for a flat one."""
     wd = session.wd
     m = wd.x.shape[1]
     out = [("local", wd.ell, m, m, False), ("local_t", wd.ell_t, m, m, True)]
-    for name, plan in (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)):
+    plans = ((("flat", wd.plan),) if wd.hier_plan is None else
+             (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)))
+    for name, plan in plans:
         wire = plan.send_gather_idx.shape[1]
         out += [(f"{name} pre", plan.pre_ell, m, wire, False),
                 (f"{name} pre_t", plan.pre_ell_t, wire, m, True),
@@ -648,7 +678,7 @@ def train_layouts(session) -> list:
     return out
 
 
-def check_repeats(layouts, dev) -> float:
+def check_repeats(layouts, dev, verbose: bool = True) -> float:
     """On every layout at F in (100, 256, 47): two launches bit for bit, and
     the kernel against the plain version."""
     import torch
@@ -664,8 +694,9 @@ def check_repeats(layouts, dev) -> float:
             if not torch.equal(a, sa._bucketed_forward(x, lay, n_out)):
                 fail(f"{name} F={f}: two launches differ")
             worst = max(worst, max_err(a, sa.bucketed_forward_ref(x, lay, n_out)))
-        print(f"[train] {name}: two launches agree bit for bit at F in (100, 256, 47)",
-              flush=True)
+        if verbose:
+            print(f"[train] {name}: two launches agree bit for bit at F in "
+                  "(100, 256, 47)", flush=True)
     return worst
 
 
@@ -1448,6 +1479,244 @@ def recovery_phase(dev, uninterrupted: dict) -> dict:
     return case
 
 
+# -- phase 14: audit and tune -------------------------------------------------
+
+TUNE_TOP_K = 3
+AUTO_EPOCHS = 2
+
+
+def _stage_bytes(step, level) -> int:
+    return sum(o.bytes for o in step.collectives("all-to-all") if o.level == level)
+
+
+def _train_bitwise(spec, dev, cache):
+    from repro_torch.run import build_session
+
+    sess = build_session(spec, device=dev, cache=cache)
+    losses = [sess.train_epoch()["loss"] for _ in range(AUTO_EPOCHS)]
+    leaves = [v for p in sess.trainer.params["layers"] for v in p.values()]
+    return sess.schedule, losses, leaves + [sess.trainer.params["lp_embed"]]
+
+
+def _quantized(spec) -> bool:
+    sched = spec.schedule.to_dist_config(spec.partition).schedule()
+    return any(s.bits for s in sched.stages)
+
+
+def check_session_kernels(session, dev, label: str) -> dict:
+    """Every kernel of one stacked session's path against its plain version,
+    at the layouts and wire rows that session built (a tuned partition such
+    as ``refine=bucket-max`` moves hub rows, so its buckets differ from
+    phase 7's). seg_aggregate forward, and its backward through autograd
+    over the reverse layout, on the local graph and on every stage's
+    pre-aggregation and receive scatter; two launches bitwise on all of
+    them; quant_pack and dequant_unpack at each quantized stage's wire rows
+    (after the psum_scatter of a grouped stage), bitwise. F in (100, 256,
+    47), rtol = atol = TOL; fails on any mismatch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import seg_aggregate as sa
+
+    layouts = train_layouts(session)
+    p = session.wd.x.shape[0]
+    reverse = {name[:-2]: lay for name, lay, _, _, bwd in layouts if bwd}
+    worst = {"seg_aggregate": 0.0, "seg_aggregate_backward": 0.0,
+             "quant_pack": 0.0, "dequant_unpack": 0.0}
+    for f in (100, 256, 47):
+        for name, lay, n_in, n_out, bwd in layouts:
+            if bwd:
+                continue
+            x = torch.randn((p, n_in, f), device=dev, requires_grad=True)
+            y = sa.bucketed_aggregate(x, lay, n_out, ell_t=reverse[name])
+            worst["seg_aggregate"] = max(worst["seg_aggregate"], max_err(
+                y, sa.bucketed_forward_ref(x.detach(), lay, n_out)))
+            g = torch.randn_like(y)
+            (dx,) = torch.autograd.grad(y, x, g)
+            worst["seg_aggregate_backward"] = max(worst["seg_aggregate_backward"], max_err(
+                dx, sa.bucketed_forward_ref(g, reverse[name], n_in)))
+    repeat = check_repeats(layouts, dev, verbose=False)
+    worst["seg_aggregate"] = max(worst["seg_aggregate"], repeat)
+
+    rng = np.random.default_rng(14)
+    sched, shapes = session.schedule, []
+    for stage in sched.stages:
+        if not stage.bits:
+            continue
+        rows = sched.plan_for(stage, session.wd).send_gather_idx.shape[-1]
+        topo = sched.topo(stage)
+        if topo.kind != "a2a":
+            rows //= topo.shard_size
+        for f in (100, 256, 47):
+            x = torch.from_numpy(rng.normal(size=(p * rows, f)).astype(np.float32)).to(dev)
+            u = torch.from_numpy(rng.uniform(size=(p * rows, f)).astype(np.float32)).to(dev)
+            for k, e in zip(("quant_pack", "dequant_unpack"),
+                            compare_quant(x, u, stage.bits, f)):
+                worst[k] = max(worst[k], e)
+        shapes.append((stage.level, p * rows, stage.bits))
+    print(f"[tune] kernels of {label}: seg_aggregate forward and backward on its "
+          f"{len(layouts)} layouts ({', '.join(n for n, *_ in layouts)}) at F in "
+          f"(100, 256, 47), two launches bitwise, max abs err "
+          f"{worst['seg_aggregate']:.3e} forward, {worst['seg_aggregate_backward']:.3e} "
+          f"backward (rtol=atol={TOL}); quant_pack and dequant_unpack bitwise at "
+          f"(stage, rows, bits) {shapes or 'none (no quantized stage)'}", flush=True)
+    return worst
+
+
+def audit_tune_phase(dev) -> dict:
+    """Phase 14 on the card: the spec matrix, the audit gate over specs/ and
+    the lint, the audit of train_products_paper with its recorded wire
+    bytes beside the prediction, the audit-gated tuner with stacked probes,
+    and exec.auto against the explicit winner, bitwise. The launch counts
+    are reset just before and read just after."""
+    import torch
+
+    from repro_torch.analysis.audit import audit_paths
+    from repro_torch.analysis.rules import STACKED_OVERRIDES, AuditContext, run_rules
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.core.perf_model import get_hardware
+    from repro_torch.run import BuildCache, RunSpec, build_session
+    from repro_torch.run.matrix import _is_serve_path, run_matrix
+    from repro_torch.run.tune import DEFAULT_AXES, tune
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    secs = {}
+
+    t0 = time.perf_counter()
+    recs = run_matrix(ROOT / "specs", device=dev, verbose=False)
+    secs["matrix"] = time.perf_counter() - t0
+    for r in recs:
+        extra = {k: r[k] for k in ("lowered_as", "lowered_ops", "served") if k in r}
+        if "store" in r:
+            extra["store_bytes"] = r["store"]["store_bytes"]
+        print(f"[matrix] {r['spec']:32s} {r.get('hash', '-'):16s} {r['status']} "
+              f"{r['elapsed_s']} s {extra}" + (f" :: {r['error']}" if "error" in r else ""),
+              flush=True)
+    bad = [f"{r['spec']} ({r.get('hash', '-')}): {r.get('error')}" for r in recs
+           if r["status"] != "ok"]
+    stacked = sorted(r["spec"] for r in recs if r.get("lowered_as") == "vmap")
+    if bad or len(recs) != 8:
+        fail(f"spec matrix on the card: {len(recs)} specs, errors {bad}")
+    if stacked != ["flagship_hier_int2_overlap.json", "shard_map.json"]:
+        fail(f"spec matrix: the shard_map specs must lower as stacked, got {stacked}")
+    by = {r["spec"]: r for r in recs}
+    if "store" not in by["multiproc_p4.json"] or by["serve_flagship.json"].get("served") != 4:
+        fail("spec matrix: multiproc gave no dry plan or the serve spec served no burst")
+
+    t0 = time.perf_counter()
+    report = audit_paths(sorted((ROOT / "specs").glob("*.json")),
+                         lint=[str(ROOT / "src" / "repro_torch")], verbose=False,
+                         device=dev)
+    secs["audit_specs"] = time.perf_counter() - t0
+    for r in report["specs"]:
+        print(f"[audit] {r['spec']:32s} {r.get('hash', '-'):16s} ran {len(r['ran'])} "
+              f"skipped {len(r['skipped'])} findings {len(r['findings'])} "
+              f"{r.get('lowered_as', '')} {r['elapsed_s']} s", flush=True)
+    print(f"[audit] ast-lint src/repro_torch: {len(report['lint']['findings'])} findings",
+          flush=True)
+    if report["summary"]["findings"]:
+        fail(f"audit of specs/ and the lint on the card: {report['summary']}")
+
+    t0 = time.perf_counter()
+    base = train_products_paper()
+    ctx = AuditContext(base, spec_name="train_products_paper", device=dev)
+    try:
+        res = run_rules(ctx)
+        step, predicted = ctx.lowered, ctx.predicted_bytes
+    finally:
+        ctx.close()
+    secs["audit_train_products_paper"] = time.perf_counter() - t0
+    print(f"[audit] train_products_paper: ran {sorted(res['ran'])}, skipped "
+          f"{res['skipped']}, findings {[str(f) for f in res['findings']]}", flush=True)
+    if len(res["ran"]) != 5 or res["findings"]:
+        fail("the audit of train_products_paper on the card is not clean with five "
+             "rules run")
+    for level in [s.level for s in ctx.schedule.stages] + ["total"]:
+        got = (sum(o.bytes for o in step.collectives("all-to-all")) if level == "total"
+               else _stage_bytes(step, level))
+        print(f"[audit] all-to-all bytes per worker per step, {level}: recorded {got}, "
+              f"predicted {predicted[level]:.0f}", flush=True)
+
+    t0 = time.perf_counter()
+    cache = BuildCache()
+    result = tune(base, axes=DEFAULT_AXES, top_k=TUNE_TOP_K, probe_mode="vmap",
+                  hw=get_hardware("measured"), cache=cache, device=dev)
+    secs["tune"] = time.perf_counter() - t0
+    for r in result["rows"]:
+        print(f"[tune] row {r['spec_hash']} {' '.join(r['overrides']) or '(base)'}: "
+              f"modelled {r['modelled_epoch_s'] * 1e3:.6f} ms", flush=True)
+    for c in result["rejected"]:
+        print(f"[tune] rejected {c['spec_hash']}: {c['audit']['findings']}", flush=True)
+    for c in result["shortlist"]:
+        p = c["probe"]
+        print(f"[tune] shortlist {c['spec_hash']} {' '.join(c['overrides']) or '(base)'}: "
+              f"measured {c['measured_epoch_s'] * 1e3:.3f} ms (period {p['period']}, "
+              f"epochs {[round(t * 1e3, 3) for t in p['epochs_s']]} ms), modelled "
+              f"{c['modelled_epoch_s'] * 1e3:.6f} ms, calibration {c['calibration']:.1f}",
+              flush=True)
+    w = result["winner"]
+    if w is None or len(result["shortlist"]) != TUNE_TOP_K:
+        fail(f"the tuner shortlisted {len(result['shortlist'])} of {TUNE_TOP_K}")
+    print(f"[tune] winner {w['spec_hash']} {' '.join(w['overrides']) or '(base)'}; "
+          f"calibration (median) {result['calibration']:.1f}; hw {result['hw']}", flush=True)
+    out = ROOT / "build" / "tuned_products_paper.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+
+    t0 = time.perf_counter()
+    winner = RunSpec.from_dict(w["spec"])
+    sa, la, pa = _train_bitwise(base.with_overrides([f"exec.auto={out}"]), dev, cache)
+    sb, lb, pb = _train_bitwise(winner, dev, cache)
+    same = la == lb and all(torch.equal(a, b) for a, b in zip(pa, pb))
+    secs["exec_auto"] = time.perf_counter() - t0
+    print(f"[tune] exec.auto={out.relative_to(ROOT)}: losses {la}, explicit winner "
+          f"{lb}; bitwise (losses, parameters) {same}; schedule {sa.describe()}",
+          flush=True)
+    if not same or sa != sb:
+        fail("exec.auto does not train bitwise as the explicit winner spec")
+
+    launched = counts()
+    uses_quant = any(_quantized(base.with_overrides(c["overrides"]))
+                     for c in result["shortlist"])
+    need = ["seg_aggregate", "seg_aggregate_backward"] + (
+        ["quant_pack", "dequant_unpack"] if uses_quant else [])
+    print(f"[tune] kernel launches in phase 14: "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()), flush=True)
+    for k in need:
+        if launched[k] <= 0:
+            fail(f"phase 14 launched no {k} kernel")
+
+    # After the counts are read: the kernels against their plain versions
+    # on the layouts of every shortlisted candidate and of every training
+    # spec in specs/ (the matrix's and the audit's flat and hierarchical
+    # toy sessions, shard_map and multiproc as their stacked variants).
+    t0 = time.perf_counter()
+    worst = dict.fromkeys(("seg_aggregate", "seg_aggregate_backward", "quant_pack",
+                           "dequant_unpack"), 0.0)
+    sessions = [(f"candidate {c['spec_hash']} {' '.join(c['overrides']) or '(base)'}",
+                 base.with_overrides(c["overrides"])) for c in result["shortlist"]]
+    for path in sorted((ROOT / "specs").glob("*.json")):
+        if not _is_serve_path(path):
+            spec = RunSpec.load(path)
+            if spec.exec.mode != "vmap":
+                spec = spec.with_overrides(list(STACKED_OVERRIDES))
+            sessions.append((f"specs/{path.name}", spec))
+    for label, spec in sessions:
+        sess = build_session(spec, device=dev, cache=cache)
+        try:
+            for k, e in check_session_kernels(sess, dev, label).items():
+                worst[k] = max(worst[k], e)
+        finally:
+            sess.close()
+    secs["kernel_checks"] = time.perf_counter() - t0
+
+    secs["phase"] = time.perf_counter() - t_phase
+    print(f"[tune] seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()),
+          flush=True)
+    return {"launches": launched, "max_abs_err": worst}
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -1463,6 +1732,63 @@ def wire_only(tree: Path, dev, smi: str) -> None:
     print_ptxas(build.build_logs)
     wire = check_quant_kernels(dev)
     print(json.dumps({"tree": str(tree), "wire": wire}))
+    print(smi)
+
+
+TIME_WARMUP, TIME_EPOCHS, TIME_BURSTS = 2, 12, 3
+
+
+def time_tree(tree: Path, dev, smi: str) -> None:
+    """``--time TREE``: phase 4's serving burst (3 times) and phase 7's
+    stacked training epochs (2 warm-up, then 12 timed) on the checkout at
+    TREE, so that two trees (a parent and its change) are timed by one
+    harness in one call on one card. Prints the median epoch per epoch
+    phase (the set of stale delayed stages) and the median QPS."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    from repro_torch.kernels import build
+
+    if not Path(build.__file__).resolve().is_relative_to(tree.resolve()):
+        fail(f"--time {tree}: imported repro_torch from {build.__file__}")
+    build.build_all()
+    from repro_torch.configs.serve_products_paper import serve_products_paper
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.launch.serve import burst
+    from repro_torch.run import build_session
+    from repro_torch.serve import build_server
+
+    server = build_server(serve_products_paper(), device=dev)
+    rng = np.random.default_rng(0)
+    n = server.graph.num_nodes
+    qps = []
+    for _ in range(TIME_BURSTS):
+        server.serve_batch([[int(v)] for v in rng.integers(0, n, BATCH)])
+        requests = [[int(v)] for v in rng.integers(0, n, SERVE_REQUESTS)]
+        qps.append(SERVE_REQUESTS / burst(server, requests, BATCH)[2])
+    del server
+
+    session = build_session(train_products_paper(), device=dev)
+    trainer = session.trainer
+    by_phase = {}
+    for i in range(TIME_WARMUP + TIME_EPOCHS):
+        stale = ",".join(s.level for s in trainer.schedule.stages
+                         if s.delayed and trainer.epoch % s.cd) or "refresh"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.train_epoch()
+        torch.cuda.synchronize()
+        if i >= TIME_WARMUP:
+            by_phase.setdefault(stale, []).append((time.perf_counter() - t0) * 1e3)
+    out = {"tree": str(tree), "qps": qps, "qps_median": statistics.median(qps),
+           "epoch_ms": by_phase,
+           "epoch_ms_median": {k: statistics.median(v) for k, v in by_phase.items()}}
+    print(f"[time] {tree}: serving QPS {[round(q, 2) for q in qps]}, median "
+          f"{out['qps_median']:.2f}; epoch ms median by phase (stale stages) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["epoch_ms_median"].items()),
+          flush=True)
+    print(json.dumps(out))
     print(smi)
 
 
@@ -1507,8 +1833,16 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     if sys.argv[1:2] == ["--wire"]:
         return wire_only(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT, dev, smi)
+    if sys.argv[1:2] == ["--time"]:
+        return time_tree(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT, dev, smi)
     if sys.argv[1:2] == ["--experiments"]:
         return experiments(dev, smi)
+    if sys.argv[1:2] == ["--tune"]:
+        from repro_torch.kernels import build
+        build.build_all()
+        audit_tune_phase(dev)
+        print(smi)
+        return
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -1567,6 +1901,7 @@ def main() -> None:
     ckpt = ckpt_phase(dev)
     multi = multiproc_phase(dev, trained)
     recovery_phase(dev, multi)
+    tuned = audit_tune_phase(dev)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -1588,10 +1923,11 @@ def main() -> None:
                                     "ms_after_flush", "F100") if k in nums}})
     for k in kernels:
         k["multiproc_max_abs_err"] = multi["checked"]["max_abs_err"][k["name"]]
+        k["tune_max_abs_err"] = tuned["max_abs_err"][k["name"]]
     paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
-             "multiproc": multi["launches"]}
+             "multiproc": multi["launches"], "tune": tuned["launches"]}
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
     for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):

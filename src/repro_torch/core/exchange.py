@@ -41,10 +41,16 @@ skipped wire shifts no other draw.
 
 The wire itself is a per-stage transport: :class:`StackedWire` here, the
 mailbox rounds of ``launch.multiproc`` for one OS process per worker.
+
+The step recorder (:func:`recording`) is off unless a caller switches it
+on around a step: ``DistributedTrainer.lower_step`` does, for the
+auditor. Then every wire op and aggregation of this module notes itself
+(``core.record.StepRecorder``); off, each hook costs one ``None`` check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -52,6 +58,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.record import StepRecorder
 from repro_torch.graph import structure as gstruct
 from repro_torch.kernels import seg_aggregate as segagg
 from repro_torch.kernels.quant_pack import dequant_unpack, quant_pack
@@ -62,6 +69,31 @@ STAGE_LEVELS = ("flat", "intra", "inter")
 
 # noise(stage_index, backward, shape) -> uniforms in [0, 1) of ``shape``
 Noise = Callable[[int, bool, Tuple[int, ...]], torch.Tensor]
+
+# The active core.record.StepRecorder, or None (the default: nothing is
+# recorded). Set only by :func:`recording`.
+RECORDER = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every wire op and aggregation run inside the block, in call
+    order; yields the ``core.record.StepRecorder``."""
+
+    global RECORDER
+    prev, RECORDER = RECORDER, StepRecorder()
+    try:
+        yield RECORDER
+    finally:
+        RECORDER = prev
+
+
+def _backward_scope(scope):
+    """The recorder's scope for a backward op whose forward op was recorded
+    in ``scope`` (a no-op context when nothing records)."""
+    if RECORDER is None or scope is None:
+        return contextlib.nullcontext()
+    return RECORDER.backward(scope)
 
 
 # --------------------------------------------------------------------------
@@ -217,10 +249,16 @@ def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan,
     raw = torch.where(plan.send_gather_mask[..., None],
                       _take(h, plan.send_gather_idx), 0.0)
     if agg_backend == "ell" and plan.pre_ell is not None:
-        return raw + segagg.bucketed_aggregate(h, plan.pre_ell, raw.shape[-2],
-                                               ell_t=plan.pre_ell_t)
-    return _index_add(raw, plan.pre_slot,
-                      plan.pre_weight[..., None] * _take(h, plan.pre_src))
+        kind = "seg_aggregate"
+        out = raw + segagg.bucketed_aggregate(h, plan.pre_ell, raw.shape[-2],
+                                              ell_t=plan.pre_ell_t)
+    else:
+        kind = "index_add"
+        out = _index_add(raw, plan.pre_slot,
+                         plan.pre_weight[..., None] * _take(h, plan.pre_src))
+    if RECORDER is not None:
+        RECORDER.note(kind, out, role="send")
+    return out
 
 
 def scatter_recv(acc: torch.Tensor, recv: torch.Tensor, plan: DeviceHaloPlan,
@@ -232,10 +270,16 @@ def scatter_recv(acc: torch.Tensor, recv: torch.Tensor, plan: DeviceHaloPlan,
     backward; ``"coo"`` is the edge-order scatter-add.
     """
     if agg_backend == "ell" and plan.recv_ell is not None:
-        return acc + segagg.bucketed_aggregate(
+        kind = "seg_aggregate"
+        out = acc + segagg.bucketed_aggregate(
             recv, plan.recv_ell, acc.shape[-2], ell_t=plan.recv_ell_t)
-    return _index_add(acc, plan.recv_dst,
-                      plan.recv_weight[..., None] * _take(recv, plan.recv_row))
+    else:
+        kind = "index_add"
+        out = _index_add(acc, plan.recv_dst,
+                         plan.recv_weight[..., None] * _take(recv, plan.recv_row))
+    if RECORDER is not None:
+        RECORDER.note(kind, out, role="recv")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -266,12 +310,36 @@ class StageTopo(NamedTuple):
     wire_dim: int = 1    # axis of ``lead`` the all_to_all crosses
 
 
-def _wire_a2a(v: torch.Tensor, topo: StageTopo) -> torch.Tensor:
+def _wire_a2a(v: torch.Tensor, topo: StageTopo, role: str = "payload"
+              ) -> torch.Tensor:
     """all_to_all of [P, rows, F] buffers in ``wire_chunks`` chunks: worker
-    i's chunk j lands in worker j's chunk i (across ``wire_dim``)."""
+    i's chunk j lands in worker j's chunk i (across ``wire_dim``).
+    ``role`` tells the recorder a payload from the (zero, scale) params."""
     g, w = topo.lead
     y = v.reshape(g, w, topo.wire_chunks, -1, v.shape[-1])
-    return y.transpose(topo.wire_dim, 2).reshape(v.shape)
+    out = y.transpose(topo.wire_dim, 2).reshape(v.shape)
+    if RECORDER is not None:
+        RECORDER.note("all-to-all", out, chunks=topo.wire_chunks, role=role)
+    return out
+
+
+class _WireA2A(torch.autograd.Function):
+    """The fp32 all_to_all as one autograd node, so the recorder sees its
+    backward (the transposed all_to_all the JAX package's gradient runs).
+    The swap of two equal-sized axes is its own inverse, so the backward
+    is :func:`_wire_a2a` again: the permutation autograd's view transpose
+    gives, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, v, topo):
+        ctx.topo = topo
+        ctx.scope = None if RECORDER is None else RECORDER.scope()
+        return _wire_a2a(v, topo)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _backward_scope(ctx.scope):
+            return _wire_a2a(g, ctx.topo), None
 
 
 def _pre_wire(x: torch.Tensor, topo: StageTopo) -> torch.Tensor:
@@ -288,7 +356,10 @@ def _pre_wire(x: torch.Tensor, topo: StageTopo) -> torch.Tensor:
     acc = y[:, 0]
     for r in range(1, w):
         acc = acc + y[:, r]                              # [G, C, W, s, F]
-    return acc.transpose(1, 2).reshape(g * w, topo.wire_chunks * s, feat)
+    out = acc.transpose(1, 2).reshape(g * w, topo.wire_chunks * s, feat)
+    if RECORDER is not None:
+        RECORDER.note("psum_scatter", out, chunks=topo.shard_size)
+    return out
 
 
 def _post_wire(y: torch.Tensor, topo: StageTopo) -> torch.Tensor:
@@ -300,7 +371,10 @@ def _post_wire(y: torch.Tensor, topo: StageTopo) -> torch.Tensor:
     s = y.shape[1] // topo.wire_chunks
     recv = y.reshape(g, w, topo.wire_chunks, s, feat).transpose(1, 2)  # [G, C, W, s, F]
     full = recv.unsqueeze(1).expand(g, w, topo.wire_chunks, w, s, feat)
-    return full.reshape(g * w, topo.wire_chunks * w * s, feat)
+    out = full.reshape(g * w, topo.wire_chunks * w * s, feat)
+    if RECORDER is not None:
+        RECORDER.note("all_gather", out, chunks=topo.shard_size)
+    return out
 
 
 def _quantized_wire(v: torch.Tensor, u: torch.Tensor, topo: StageTopo,
@@ -317,13 +391,18 @@ def _quantized_wire(v: torch.Tensor, u: torch.Tensor, topo: StageTopo,
                          f"multiple of the quant row group ({ROW_GROUP})")
     packed, zero, scale = quant_pack(v.reshape(p * rows, feat),
                                      u.reshape(p * rows, feat), bits)
-    qr = _wire_a2a(packed.reshape(p, rows, -1), topo)
+    packed = packed.reshape(p, rows, -1)
+    if RECORDER is not None:
+        RECORDER.note("quant_pack", packed)
+    qr = _wire_a2a(packed, topo)
     # fp32 (zero, scale) ride along — the paper's "params" wire term (Eqn 5).
-    zr = _wire_a2a(zero.reshape(p, rows // ROW_GROUP, 1), topo)
-    sr = _wire_a2a(scale.reshape(p, rows // ROW_GROUP, 1), topo)
+    zr = _wire_a2a(zero.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
+    sr = _wire_a2a(scale.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
     out = dequant_unpack(qr.reshape(p * rows, -1), zr.reshape(-1),
-                         sr.reshape(-1), bits, feat)
-    return out.reshape(p, rows, feat)
+                         sr.reshape(-1), bits, feat).reshape(p, rows, feat)
+    if RECORDER is not None:
+        RECORDER.note("dequant_unpack", out)
+    return out
 
 
 class _QuantizedExchange(torch.autograd.Function):
@@ -340,6 +419,7 @@ class _QuantizedExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, send, topo, bits, noise):
         ctx.topo, ctx.bits, ctx.noise = topo, bits, noise
+        ctx.scope = None if RECORDER is None else RECORDER.scope()
         wire = _pre_wire(send, topo)
         return _quantized_wire(wire, noise(False, tuple(wire.shape)), topo, bits)
 
@@ -347,8 +427,9 @@ class _QuantizedExchange(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         u = ctx.noise(True, tuple(g.shape))
-        return (_post_wire(_quantized_wire(g, u, ctx.topo, ctx.bits), ctx.topo),
-                None, None, None)
+        with _backward_scope(ctx.scope):
+            out = _post_wire(_quantized_wire(g, u, ctx.topo, ctx.bits), ctx.topo)
+        return out, None, None, None
 
 
 def quantized_exchange(send: torch.Tensor, topo: StageTopo, bits: int,
@@ -378,7 +459,7 @@ def stage_exchange(send: torch.Tensor, topo: StageTopo, bits: int,
     (quantized) all_to_all + dequantize, then the post-wire fan-out
     (all_gather for ``grouped``, identity for ``a2a``)."""
     if bits == 0:
-        wire = _wire_a2a(_pre_wire(send, topo), topo)
+        wire = _WireA2A.apply(_pre_wire(send, topo), topo)
     else:
         if noise is None:
             raise ValueError("quantized exchange needs stochastic-rounding noise")
@@ -644,7 +725,9 @@ class LayerProgram:
         return cache_entry[self._cache_slot[si]].detach()
 
     def _post(self, si: int, h: torch.Tensor, noise: Optional[Noise]):
-        _, plan, wire = self._stages[si]
+        spec, plan, wire = self._stages[si]
+        if RECORDER is not None:
+            RECORDER.level = spec.level
         stage_noise = None
         if noise is not None:
             stage_noise = lambda backward, shape: noise(si, backward, shape)
@@ -684,5 +767,7 @@ class LayerProgram:
                 r = wire.collect(handle)
             if spec.delayed:
                 new_entry.append(r.detach())
+            if RECORDER is not None:
+                RECORDER.level = spec.level
             acc = scatter_recv(acc, r, plan, agg_backend=self.agg_backend)
         return acc, tuple(new_entry)

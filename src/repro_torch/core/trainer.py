@@ -47,6 +47,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import exchange as X
 from repro_torch.core import model as M
 from repro_torch.core.exchange import (
     DeviceHaloPlan,
@@ -59,6 +60,7 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.layers import gat_aggregate, gat_aggregate_bucketed
 from repro_torch.core.randomness import GeneratorRandomness
+from repro_torch.core.record import LoweredStep
 from repro_torch.graph.remote import (
     HierPartitionedGraph,
     build_halo_plan,
@@ -82,8 +84,6 @@ from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_
 # Hierarchical schedules default the slow inter-group wire to Int2 when the
 # base ``bits`` is fp32, as in the JAX package.
 HIER_INTER_BITS_DEFAULT = 2
-
-NOT_PORTED = "is not ported to PyTorch yet (ROADMAP queue A); use the JAX package"
 
 SHARD_MAP_REFUSED = (
     "exec.mode='shard_map' needs a mesh of devices, and one card holds none; "
@@ -481,9 +481,13 @@ def _local_aggregate(h: torch.Tensor, wd: WorkerData,
     edge-order scatter-add kept for parity checks.
     """
     if agg_backend == "ell" and wd.ell is not None:
-        return bucketed_aggregate(h, wd.ell, ell_t=wd.ell_t)
-    return _index_add(torch.zeros_like(h), wd.coo_dst,
-                      wd.coo_w[..., None] * _take(h, wd.coo_src))
+        kind, out = "seg_aggregate", bucketed_aggregate(h, wd.ell, ell_t=wd.ell_t)
+    else:
+        kind, out = "index_add", _index_add(torch.zeros_like(h), wd.coo_dst,
+                                            wd.coo_w[..., None] * _take(h, wd.coo_src))
+    if X.RECORDER is not None:
+        X.RECORDER.note(kind, out, role="local", level="")
+    return out
 
 
 def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
@@ -507,6 +511,8 @@ def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
     dev = wd.x.device
 
     def agg_fn(l: int, h: torch.Tensor) -> torch.Tensor:
+        if X.RECORDER is not None:
+            X.RECORDER.layer = l
         noise = None
         if randomness is not None:
             noise = lambda si, backward, shape: randomness.quant_uniform(
@@ -559,6 +565,10 @@ class DistributedTrainer:
         self.epoch = 0
         self.use_cache = self.schedule.uses_cache
         self._cache = None
+        # Distinct step signatures (the ops' kinds, shapes and dtypes) of
+        # the epochs trained while the step recorder was on: eager PyTorch's
+        # count of what a compiled step would have cached (retrace-guard).
+        self.step_signatures: set = set()
         if dc.hierarchical and wd.hier_plan is None:
             raise ValueError(
                 "hierarchical DistConfig needs WorkerData built from a "
@@ -606,12 +616,20 @@ class DistributedTrainer:
         return grads, metrics, (cache if self.use_cache else None)
 
     def train_epoch(self) -> Dict[str, float]:
+        rec = X.RECORDER
+        mark = len(rec.ops) if rec is not None else 0
         grads, metrics, cache = self.train_step()
+        if rec is not None:
+            self.step_signatures.add(rec.signature(mark))
         if self.use_cache:
             self._cache = cache
         self.params, self.opt_state = adamw_update(
             grads, self.opt_state, self.params, self.dc.lr)
         self.epoch += 1
+        # float() copies each metric to the host, which waits for every op
+        # queued before it, AdamW's included: a host clock around
+        # train_epoch (run/tune.py's probe) stops after the card has
+        # finished the epoch. Keep this sync.
         return {k: float(v) for k, v in metrics.items()}
 
     def evaluate(self) -> float:
@@ -689,7 +707,25 @@ class DistributedTrainer:
                                                       manifest.get("step") or step))
         return step
 
-    # -- not ported yet ----------------------------------------------------
+    # -- the recorded step ------------------------------------------------
 
-    def lower_step(self, *args, **kwargs):
-        raise NotImplementedError(f"lower_step (the dry-run hook) {NOT_PORTED}")
+    def lower_step(self, epoch: Optional[int] = None):
+        """One forward and backward of the current state under the step
+        recorder, returned as a ``core.record.LoweredStep`` (the port's
+        lowered module; the JAX package lowers without running, this runs
+        on the session's device). It draws from the randomness as
+        ``train_step`` would at ``epoch`` (default: the next epoch's) and
+        applies no update: parameters, AdamW state, halo cache, epoch
+        counter and ``.grad`` stay as they were."""
+        e = self.epoch if epoch is None else int(epoch)
+        saved_epoch, saved_cache = self.epoch, self._cache
+        self.epoch = e
+        try:
+            with X.recording() as rec:
+                self.train_step()
+        finally:
+            self.epoch, self._cache = saved_epoch, saved_cache
+        stale = tuple(s.level for s in self.schedule.stages
+                      if s.delayed and e % s.cd)
+        return LoweredStep(ops=rec.ops, epoch=e, nparts=self.dc.nparts,
+                           stale_levels=stale)

@@ -6,9 +6,14 @@ The port of ``repro.launch.train --gcn``: a :class:`repro_torch.run.RunSpec`
 ``--device`` (the card by default; it raises if there is none), with all
 workers stacked on that device (``exec.mode=vmap``) or one process per
 worker sharing it through host mailboxes (``exec.mode=multiproc``), and
-trained for ``exec.epochs`` epochs. ``--ckpt-dir`` snapshots the run in the JAX
-package's checkpoint format (every ``--ckpt-every`` epochs, default every
-epoch), ``--resume`` continues from the newest valid snapshot there, and
+trained for ``exec.epochs`` epochs. The JAX launcher's explicit flags
+(``--nparts``, ``--bits``, ``--inter-cd``, ...) are accepted as aliases
+onto the same spec paths (``run.cli.LEGACY_ALIASES``; ``--set`` wins over
+them), as are ``--save-spec`` and ``--print-spec``; ``--set
+exec.auto=tuned.json`` adopts a tuner result (``repro_torch.run.tune``).
+``--ckpt-dir`` snapshots the run in the JAX package's checkpoint format
+(every ``--ckpt-every`` epochs, default every epoch), ``--resume``
+continues from the newest valid snapshot there, and
 ``repro_torch.launch.serve --set serve.ckpt=DIR`` serves the trained
 parameters. The ``--arch`` path (LM training) is not ported.
 
@@ -19,6 +24,8 @@ Examples:
   python -m repro_torch.launch.train --set exec.epochs=4 --ckpt-dir runs/products
   python -m repro_torch.launch.train --set exec.epochs=8 --ckpt-dir runs/products --resume
   python -m repro_torch.launch.train --set exec.mode=multiproc --set exec.epochs=4
+  python -m repro_torch.launch.train --gcn --nparts 8 --groups 2 --inter-bits 2 --epochs 30
+  python -m repro_torch.launch.train --set exec.auto=build/tuned.json
 """
 
 from __future__ import annotations
@@ -27,21 +34,58 @@ import argparse
 import time
 
 
+# How each legacy flag parses, where it is not an int; ``--lp`` and
+# ``--overlap`` are switches with a ``--no-`` form. ``scale`` has a spec
+# path but no flag, as in the JAX launcher.
+_LEGACY_KW = {
+    "degree": {"type": float}, "lr": {"type": float}, "heartbeat_s": {"type": float},
+    "model": {"choices": ["gcn", "sage", "gin", "gat"]},
+    "strategy": {"choices": ["hybrid", "pre", "post", "vanilla"]},
+    "agg_backend": {"choices": ["coo", "ell"]},
+    "mode": {"choices": ["vmap", "shard_map", "multiproc"]},
+    **{b: {"type": int, "choices": [0, 2, 4, 8]}
+       for b in ("bits", "intra_bits", "inter_bits")},
+}
+_LEGACY_SWITCHES = ("lp", "overlap")
+_NO_FLAG = ("scale",)
+
+
+def add_legacy_args(ap: argparse.ArgumentParser) -> None:
+    """The JAX launcher's historical flags, each a deprecation alias onto
+    the RunSpec path(s) ``run.cli.LEGACY_ALIASES`` gives it.
+    ``default=None`` means "not passed": only user-supplied values
+    override the spec."""
+    from repro_torch.run.cli import LEGACY_ALIASES
+
+    for dest, paths in LEGACY_ALIASES.items():
+        if dest in _NO_FLAG:
+            continue
+        path = "/".join((paths,) if isinstance(paths, str) else paths)
+        flag = "--" + dest.replace("_", "-")
+        if dest in _LEGACY_SWITCHES:
+            ap.add_argument(flag, dest=dest, action="store_true", default=None,
+                            help=f"alias for --set {path}=true")
+            ap.add_argument(f"--no-{flag[2:]}", dest=dest, action="store_false",
+                            help=f"alias for --set {path}=false")
+        else:
+            ap.add_argument(flag, dest=dest, default=None,
+                            help=f"alias for --set {path}=...",
+                            **_LEGACY_KW.get(dest, {"type": int}))
+
+
 def main(argv=None) -> int:
+    from repro_torch.run import add_spec_args, spec_from_args
+
     ap = argparse.ArgumentParser(
         description="Train the paper's distributed GCN from a RunSpec")
     ap.add_argument("--gcn", action="store_true",
                     help="the GCN trainer (the only one ported; accepted for "
                          "the JAX launcher's command lines)")
-    ap.add_argument("--spec", default=None, metavar="FILE.json",
-                    help="RunSpec JSON (default: configs/train_products_paper)")
-    ap.add_argument("--set", dest="overrides", action="append", default=[],
-                    metavar="SECTION.FIELD=VALUE", help="override one spec field")
+    # defaults (train_products_paper) < --spec < legacy flags < --set
+    add_spec_args(ap)
+    add_legacy_args(ap)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda)")
-    ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="snapshot period in epochs; alias for "
-                         "--set exec.ckpt_every=N")
     ap.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint directory: turns on periodic atomic "
                          "snapshots and enables --resume")
@@ -52,13 +96,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.configs.train_products_paper import train_products_paper
-    from repro_torch.run import RunSpec, build_session
+    from repro_torch.run import build_session
 
-    overrides = list(args.overrides)
-    if args.ckpt_every is not None:
-        overrides.append(f"exec.ckpt_every={args.ckpt_every}")
-    spec = (RunSpec.load(args.spec).with_overrides(overrides) if args.spec
-            else train_products_paper(*overrides))
+    spec = spec_from_args(args, base=train_products_paper())
     print(f"spec: {spec.describe()}")
     session = build_session(spec, device=args.device)
     multiproc = spec.exec.mode == "multiproc"

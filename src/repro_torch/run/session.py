@@ -6,10 +6,15 @@ port's training stack (counterpart of ``repro.run.session``).
   ``DistributedTrainer`` (the stacked vmap mode)
 
 runs here once, stage by stage, and returns a :class:`Session` with the
-operations the drivers perform: ``fit`` / ``train_epoch`` / ``evaluate``
-and the accounting (``comm_stats``, ``partition_stats``,
-``predicted_wire_bytes``). ``build_graph`` and ``build_partition`` are
-public, as there; serving uses them too.
+operations the launchers perform: ``fit`` / ``train_epoch`` / ``evaluate``,
+``lower`` (the recorded step the auditor reads) and the accounting
+(``comm_stats``, ``partition_stats``, ``predicted_wire_bytes``,
+``predicted_hlo_wire_bytes``). ``build_graph`` and ``build_partition``
+are public, as there; serving uses them too, and :class:`BuildCache`
+shares them across specs that agree on them (the sweep and the tuner).
+``exec.auto`` names a tuner result (``python -m repro_torch.run.tune``,
+or the JAX package's, whose layout is the same): :func:`resolve_auto`
+swaps its winner's partition and schedule into the spec.
 
 ``exec.mode=multiproc`` runs one OS process per partition instead
 (``repro_torch.launch.multiproc.MultiprocRuntime``): the host arrays are
@@ -21,13 +26,15 @@ into the JAX package's checkpoint format (per rank under multiproc, whose
 supervisor also restores from there after a fault), and
 ``fit(resume=True)`` restores the newest valid snapshot first.
 
-Refused (they raise): ``exec.mode=shard_map`` (one card holds no
-multi-device mesh; ``core.trainer.SHARD_MAP_REFUSED``), and ``exec.auto``
-and ``lower``, not ported yet.
+Refused (it raises): ``exec.mode=shard_map`` (one card holds no
+multi-device mesh; ``core.trainer.SHARD_MAP_REFUSED``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,7 +42,19 @@ import numpy as np
 import repro_torch.run.sources as sources  # populates the registries on import
 from repro_torch.run.spec import FEATURE_SOURCES, GRAPH_SOURCES, RunSpec
 
-NOT_PORTED = "is not ported to PyTorch yet (ROADMAP queue A); use the JAX package"
+
+def stage_wire_payload_bytes(rows: int, feat: int, bits: int) -> float:
+    """One direction's all-to-all bytes per worker for a ``[rows, feat]``
+    wire buffer as the port ships it: fp32 rows, or the packed int32 words
+    of ``kernels.quant_pack`` (``words_per_row(feat, bits)`` a row) plus
+    the two fp32 (zero, scale) params per ``ROW_GROUP`` rows. The JAX
+    package ships one int32 holder per value instead
+    (``repro.run.session.stage_hlo_payload_bytes``)."""
+    from repro_torch.quant.stochastic import ROW_GROUP, words_per_row
+
+    if not bits:
+        return rows * feat * 4.0
+    return rows * words_per_row(feat, bits) * 4.0 + 2.0 * (-(-rows // ROW_GROUP)) * 4.0
 
 
 def build_graph(spec: RunSpec) -> Tuple[Any, np.ndarray]:
@@ -81,6 +100,78 @@ def build_partition(spec: RunSpec, g) -> Any:
         part = refine_bucket_max(g, part, nparts=ps.nparts, seed=ps.seed)
     return build_partitioned_graph(g, ps.nparts, part=part,
                                    strategy=ps.strategy, seed=ps.seed)
+
+
+def resolve_auto(spec: RunSpec) -> RunSpec:
+    """The ``exec.auto`` resolution path: when ``exec.auto`` names a tuner
+    result file (``python -m repro_torch.run.tune --out ...``, or the JAX
+    package's), swap the audited winner's partition + schedule sections
+    into the caller's spec. The caller keeps naming its graph/model/exec;
+    the tuner owns the performance knobs. Refuses a result tuned for a
+    different graph section — a stale auto file must fail loudly, not run
+    the wrong schedule silently."""
+    from repro_torch.run.spec import SpecError
+    if not spec.exec.auto:
+        return spec
+    path = spec.exec.auto
+    try:
+        with open(path) as f:
+            result = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise SpecError(f"exec.auto: cannot read tuner result {path!r}: {e}")
+    winner = result.get("winner") or {}
+    if not winner.get("spec"):
+        raise SpecError(f"exec.auto: {path!r} carries no winner.spec "
+                        "(re-run repro_torch.run.tune)")
+    tuned = RunSpec.from_dict(winner["spec"])
+    if tuned.graph.content_hash() != spec.graph.content_hash():
+        raise SpecError(
+            f"exec.auto: {path!r} was tuned for graph section "
+            f"{tuned.graph.content_hash()}, this spec builds "
+            f"{spec.graph.content_hash()} — re-tune for this graph")
+    return dataclasses.replace(spec, partition=tuned.partition,
+                               schedule=tuned.schedule).validate()
+
+
+@dataclass
+class BuildCache:
+    """Shares the graph/partition stages across sessions whose specs agree
+    on those stages (sweep grids over schedule/model knobs). Keys are
+    content hashes of the contributing sub-specs, so a hit never crosses
+    configurations."""
+
+    graphs: Dict[str, Tuple[Any, np.ndarray]] = field(default_factory=dict)
+    partitions: Dict[str, Any] = field(default_factory=dict)
+    pstats: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+
+    @staticmethod
+    def _graph_key(spec: RunSpec) -> str:
+        return spec.graph.content_hash()
+
+    @staticmethod
+    def _part_key(spec: RunSpec) -> str:
+        return f"{spec.graph.content_hash()}|{spec.partition.content_hash()}"
+
+    def graph(self, spec: RunSpec) -> Tuple[Any, np.ndarray]:
+        key = self._graph_key(spec)
+        if key not in self.graphs:
+            self.graphs[key] = build_graph(spec)
+        return self.graphs[key]
+
+    def partition(self, spec: RunSpec, g) -> Any:
+        key = self._part_key(spec)
+        if key not in self.partitions:
+            self.partitions[key] = build_partition(spec, g)
+        return self.partitions[key]
+
+    def partition_stats(self, spec: RunSpec, g) -> Dict[str, Any]:
+        """``partition_stats`` for the spec's labels, cached alongside the
+        partition itself (sweep grids re-read it per schedule variant)."""
+        key = self._part_key(spec)
+        if key not in self.pstats:
+            from repro_torch.graph.partition import partition_stats
+            self.pstats[key] = partition_stats(g, self.partition(spec, g).part)
+        return self.pstats[key]
 
 
 class Session:
@@ -167,6 +258,13 @@ class Session:
     def evaluate(self) -> float:
         return self.trainer.evaluate()
 
+    def lower(self, epoch: Optional[int] = None):
+        """One training step recorded (``core.record.LoweredStep``): runs a
+        forward and backward on the session's device and changes no state
+        (``DistributedTrainer.lower_step``). Multiproc raises: it has no
+        single step."""
+        return self.trainer.lower_step(epoch)
+
     def close(self) -> None:
         """Release the trainer's resources (multiproc: stop the fleet and
         unlink the shared-memory segments); nothing to do when stacked."""
@@ -204,27 +302,69 @@ class Session:
         f = self.spec.graph.feat_dim if feat_dim is None else feat_dim
         return self.schedule.wire_volume_bytes(self.pg.stats, f)
 
+    def predicted_hlo_wire_bytes(self) -> Dict[str, float]:
+        """All-to-all bytes per worker expected in ONE recorded step with
+        every stage's wire running (forward + backward), derived from the
+        device plans: per stage and layer, the plan's wire rows
+        (``send_gather_idx`` rows; the grouped inter stage wires only its
+        1/``shard_size`` shard) at the layer's input width, both directions,
+        in the port's wire format (:func:`stage_wire_payload_bytes`: packed
+        int32 words, not the JAX package's one int32 holder per value). The
+        auditor's ``predicted-bytes`` rule holds the recorded step to it;
+        :meth:`predicted_wire_bytes` is the paper's cost model."""
+        cfg = self.trainer.cfg
+        feats = cfg.dims()[: cfg.num_layers]
+        out: Dict[str, float] = {}
+        total = 0.0
+        for stage in self.schedule.stages:
+            rows = int(self.schedule.plan_for(stage, self.wd).send_gather_idx.shape[-1])
+            topo = self.schedule.topo(stage)
+            if topo.kind == "grouped":
+                rows //= topo.shard_size
+            stage_bytes = sum(2.0 * stage_wire_payload_bytes(rows, f, stage.bits)
+                              for f in feats)
+            out[stage.level] = stage_bytes
+            total += stage_bytes
+        out["total"] = total
+        return out
+
+    def step_cache_size(self) -> Optional[int]:
+        """Distinct step signatures among the epochs trained while the step
+        recorder was on (eager PyTorch's count of compiled executables; the
+        auditor's ``retrace-guard`` reads it). None under multiproc, which
+        has no single step."""
+        sigs = getattr(self.trainer, "step_signatures", None)
+        return None if sigs is None else len(sigs)
+
+    def describe(self) -> str:
+        return self.spec.describe()
+
 
 def build_session(spec: RunSpec, device="cuda", randomness=None,
-                  params: Optional[Dict] = None) -> Session:
+                  params: Optional[Dict] = None,
+                  cache: Optional[BuildCache] = None) -> Session:
     """Lower ``spec`` end to end onto ``device`` (the card unless the
     caller asks for the CPU; raises if the card is missing) and return the
-    live :class:`Session`. ``params`` and ``randomness`` default to fresh
+    live :class:`Session`. ``exec.auto`` is resolved first
+    (:func:`resolve_auto`). ``params`` and ``randomness`` default to fresh
     ones drawn from ``exec.seed`` (under multiproc ``randomness`` must
-    pickle: every rank gets a copy)."""
+    pickle: every rank gets a copy); ``cache`` shares the graph and
+    partition builds with other sessions."""
     from repro_torch.core import DistributedTrainer
     from repro_torch.core.trainer import (SHARD_MAP_REFUSED, lift_worker_data,
                                           prepare_distributed_host,
                                           resolve_device)
 
-    spec = spec.validate()
+    spec = resolve_auto(spec.validate())
     if spec.exec.mode == "shard_map":
         raise NotImplementedError(SHARD_MAP_REFUSED)
-    if spec.exec.auto:
-        raise NotImplementedError(f"exec.auto (tuned schedules) {NOT_PORTED}")
     dev = resolve_device(device)
-    g, x = build_graph(spec)
-    pg = build_partition(spec, g)
+    if cache is not None:
+        g, x = cache.graph(spec)
+        pg = cache.partition(spec, g)
+    else:
+        g, x = build_graph(spec)
+        pg = build_partition(spec, g)
     hwd = prepare_distributed_host(g, x, pg)
     if spec.exec.mode == "multiproc":
         from repro_torch.launch.multiproc import MultiprocRuntime

@@ -475,3 +475,42 @@ def test_coo_backend_repeats_and_resumes_bitwise(cuda, tmp_path):
     for s in (runs[1], resumed):
         a, b = _flatten(s.trainer.train_state()), _flatten(runs[0].trainer.train_state())
         assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.gpu
+def test_flagship_audit_clean_on_card(cuda):
+    """The flagship spec's recorded step on the card passes all five rules
+    (through its stacked variant), with the kernels on its path launched."""
+    from repro_torch.analysis.audit import audit_spec
+    from repro_torch.run import RunSpec
+
+    root = Path(__file__).resolve().parents[1]
+    before = (sa.launches, sa.backward_launches)
+    res = audit_spec(RunSpec.load(root / "specs" / "flagship_hier_int2_overlap.json"),
+                     steps=2, device=cuda)
+    assert [str(f) for f in res["findings"]] == [] and res["rule_errors"] == []
+    assert len(res["ran"]) == 5 and res["lowered_as"] == "vmap"
+    assert sa.launches > before[0] and sa.backward_launches > before[1]
+
+
+@pytest.mark.gpu
+def test_exec_auto_on_card_equals_explicit_winner(cuda, tmp_path):
+    """A session built with exec.auto trains bitwise as the tuner's winner
+    spec written out, on the card."""
+    from repro_torch.run import RunSpec, build_session, tune
+
+    root = Path(__file__).resolve().parents[1]
+    base = RunSpec.load(root / "specs" / "hier_int2_inter.json")
+    result = tune(base, axes=["partition.refine=none,bucket-max", "schedule.inter_cd=1,2"],
+                  top_k=2, probe_mode="vmap", device=cuda)
+    path = tmp_path / "tuned.json"
+    path.write_text(json.dumps(result))
+    runs = []
+    for spec in (base.with_overrides([f"exec.auto={path}"]),
+                 RunSpec.from_dict(result["winner"]["spec"])):
+        s = build_session(spec, device=cuda)
+        runs.append((s.schedule, [s.train_epoch()["loss"] for _ in range(2)],
+                     [v for p in s.trainer.params["layers"] for v in p.values()]))
+    (sa_, la, pa), (sb_, lb, pb) = runs
+    assert sa_ == sb_ and la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
