@@ -8,6 +8,7 @@
                                           # C2's plain-aggregation run and a
                                           # rank's cost of the stacked draws
     python3 chip_smoke.py --tune          # phases 1, 2 and 14 only
+    python3 chip_smoke.py --lm            # phases 1, 2 and 15 only
     python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
                                           # epochs, longer, on the checkout
                                           # at TREE (for parent/change A/B)
@@ -127,7 +128,32 @@ the result line is printed:
              seg_aggregate forward and backward at F in (100, 256, 47) within
              1e-5 and two launches bitwise, the quantizer pair bitwise at
              each quantized stage's wire rows.
-15. the kernels line (JSON, with each kernel's launches on every path), the
+15. LM serving — the port's entry point (launch/serve_llm: build_lm,
+             generate) on the card for tinyllama-1.1b (all 22 layers),
+             granite-moe-1b-a400m (all 24 layers, 32 experts, top-8) and
+             deepseek-v2-lite-16b (full width, the first 4 of 27 layers),
+             random weights from a seed, fp32 with a bf16 copy. Each runs
+             the default mix (batch 4, prompt 12 token by token, 24
+             generated greedily) twice: prefill seconds, decode ms per step
+             and tokens/s of the second run, peak device memory, and the
+             decode bound (the bf16 weights a step reads, its routed experts
+             as the run selected them, and its cache, over 3.35 TB/s); every
+             logit finite; the second run bitwise equal to the first. Then,
+             within 2e-2 x max|logit|: 2 layers at full width, 12
+             teacher-forced tokens, on the card against the CPU with the
+             same weights; and every prompt position's decode logits against
+             forward_train on the card (for MoE at a capacity that drops no
+             assignment, as decode drops none; the shipped capacity's drops
+             are printed beside it), in bf16 and again in fp32 (the fp32
+             parameters: rounding that small flips hardly a tie, so it holds
+             the tokens bf16 flips leave out). A token whose experts
+             differ between two bf16 runs (a near-tie that rounding flips) is
+             counted and printed, and it and the later positions of its
+             sequence are left out of the bar; a flip no lower flip explains
+             must be a near-tie (within 2e-2 in the reference run's
+             probabilities). One profiled run of 5 serve_steps gives the
+             device's busy share.
+16. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -1717,6 +1743,219 @@ def audit_tune_phase(dev) -> dict:
     return {"launches": launched, "max_abs_err": worst}
 
 
+# -- phase 15: LM serving -------------------------------------------------------
+
+# Card vs CPU and decode vs forward, × max|logit|: the JAX package's own bf16
+# decode differs from its fp32 decode by 0.70-0.84% of max|logit| on the
+# smoke configs of these three architectures.
+LM_BAR = 2e-2
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 12, 24
+# (architecture, layers kept): deepseek's 27 layers are 64.8 GB in fp32,
+# which does not fit beside their bf16 copy and the work buffers.
+LM_CONFIGS = (("tinyllama-1.1b", None), ("granite-moe-1b-a400m", None),
+              ("deepseek-v2-lite-16b", 4))
+
+
+def lm_step_bytes(served, cfg, batch: int, experts_read: float,
+                  tokens_read: float) -> float:
+    """Bytes one decode step must read: every compute-dtype weight it uses
+    once (the embedding's ``batch`` rows unless it is the tied head; the
+    routed experts only as many as the step selects, ``experts_read``
+    summed over layers) and ``tokens_read`` cached tokens a layer."""
+    from repro_torch.utils.trees import tree_bytes
+
+    blocks = served["blocks"]
+    experts = {k: blocks["moe"][k] for k in ("w_gate", "w_up", "w_down")} if cfg.moe else {}
+    rest = {k: v for k, v in served.items() if k not in ("embed", "blocks")}
+    total = tree_bytes(rest) + tree_bytes(blocks) - tree_bytes(experts)
+    emb = served["embed"]
+    total += tree_bytes(emb) if cfg.tie_embeddings else batch * emb[0].numel() * emb.element_size()
+    if cfg.moe:
+        total += experts_read * tree_bytes(experts) / (cfg.num_layers * cfg.moe.num_experts)
+    per_token = ((cfg.mla.kv_lora + cfg.mla.rope_dim) if cfg.mla
+                 else 2 * cfg.num_kv_heads * cfg.hd) * emb.element_size()
+    return total + tokens_read * batch * cfg.num_layers * per_token
+
+
+def lm_compare(label: str, got, want, got_routes, want_routes, cfg) -> dict:
+    """Logits [B, S, V] of two runs within LM_BAR x max|logit|. A token
+    whose experts differ between the runs in some layer (a near-tie that
+    bf16 rounding flips) is counted and printed, and it and the later
+    positions of its sequence that attend to it are left out of the bar;
+    a flip that is no near-tie fails."""
+    import torch
+
+    from repro_torch.launch.serve_llm import router_flips
+
+    b, s, _ = want.shape
+    flipped, affected, not_ties = router_flips(got_routes, want_routes, cfg, b, s)
+    if not_ties:
+        fail(f"{label}: experts differ without a near-tie (layer, b, s, want's only, "
+             f"got's only): {not_ties[:5]}")
+    got, want = got.float().cpu(), want.float().cpu()
+    ref = float(want.abs().max())
+    per_token = (got - want).abs().amax(-1) / ref                    # [B, S]
+    keep = torch.ones((b, s), dtype=torch.bool)
+    for i, j in affected:
+        keep[i, j] = False
+    err = float(per_token[keep].max()) * ref if bool(keep.any()) else 0.0
+    worst = divmod(int(per_token.argmax()), s)
+    print(f"{label}: max |diff| {err:.6g} = {err / ref:.4e} of max|logit| {ref:.6g} "
+          f"(bar {LM_BAR}); router flips (near-ties): {len(flipped)} tokens "
+          f"{sorted(flipped)[:8]}, left out with the later positions of their "
+          f"sequences: {len(affected)} of {b * s}; worst token {worst} at "
+          f"{float(per_token.max()):.4e}", flush=True)
+    if not err <= LM_BAR * ref:
+        fail(f"{label}: logits differ by {err} > {LM_BAR} x {ref}")
+    return {"rel_err": err / ref, "flipped": len(flipped), "left_out": len(affected)}
+
+
+def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve_llm import (RecordRoutes, build_lm, full_forward,
+                                              generate, teacher_forced)
+    from repro_torch.models.moe import _capacity
+    from repro_torch.utils.trees import tree_bytes, tree_map
+
+    full = get_arch(name)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    tag = f"[lm] {name}"
+    cut = ("all" if layers is None else
+           f"the first {layers} of {full.num_layers} (all {full.num_layers} in fp32: "
+           f"{full.param_count() * 4 / 1e9:.1f} GB)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lm = build_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = cfg.param_count()
+    print(f"{tag}: full width (d={cfg.d_model}, {cfg.num_heads}H, kv {cfg.num_kv_heads}, "
+          f"vocab {cfg.vocab_size}), layers: {cut}; {n_params:,} parameters, "
+          f"fp32 {tree_bytes(lm.params) / 1e9:.3f} GB + bf16 copy "
+          f"{tree_bytes(lm.served) / 1e9:.3f} GB, built in {build_s:.2f} s", flush=True)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(0))
+
+    # The default mix twice: the first run records the routing (for the
+    # bound and the checks below) and is the reference of the second,
+    # which is timed.
+    with RecordRoutes() as routes:
+        first = generate(lm, prompts, LM_GEN)
+    second = generate(lm, prompts, LM_GEN)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for run in (first, second):
+        if not bool(torch.isfinite(run.logits).all()):
+            fail(f"{name}: non-finite logits")
+    if not (torch.equal(first.tokens, second.tokens)
+            and torch.equal(first.logits, second.logits)):
+        fail(f"{name}: a second run of the same prompts is not bitwise equal")
+    steps = second.decode_steps
+    decode_ms = second.decode_s / steps * 1e3
+    tok_s = LM_BATCH * steps / second.decode_s
+    experts_read = 0.0
+    prefill_calls = LM_PROMPT * cfg.num_layers if cfg.moe else 0
+    if cfg.moe:
+        decode_calls = routes.calls[prefill_calls:]
+        experts_read = sum(int(torch.unique(s).numel()) for _, s in decode_calls) / steps
+    tokens_read = LM_PROMPT + LM_GEN / 2                     # mean of pos + 1
+    step_bytes = lm_step_bytes(lm.served, cfg, LM_BATCH, experts_read, tokens_read)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"{tag}: batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN} (second run): "
+          f"prefill {second.prefill_s:.4f} s, decode {decode_ms:.4f} ms/step "
+          f"(CUDA-synchronized host clock, {steps} steps), {tok_s:.1f} tok/s, peak device "
+          f"memory {peak / 1e9:.3f} GB; decode bound {bound_ms:.4f} ms/step "
+          f"({step_bytes / 1e9:.4f} GB a step over 3.35 TB/s"
+          + (f", {experts_read / cfg.num_layers:.2f} of {cfg.moe.num_experts} experts "
+             f"a layer" if cfg.moe else "")
+          + f", cache {tokens_read:.0f} tokens a layer); {smi}", flush=True)
+    print(f"{tag}: logits finite; second run bitwise equal (tokens, "
+          f"{tuple(second.logits.shape)} logits); req 0: {second.tokens[0, :12].tolist()}",
+          flush=True)
+    prefill = RecordRoutes()
+    prefill.calls = routes.calls[:prefill_calls]
+    # Where a step's time goes: 5 serve_steps (1 prefill, 4 decode) profiled.
+    wall, busy, by_name = profile_device(lambda: generate(lm, prompts[:, :1], 5))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{tag}: profiled 5 serve_steps: wall {wall * 1e3:.3f} ms (profiler on), device "
+          f"busy {busy * 1e3:.3f} ms ({1 - busy / wall:.2%} idle); top: "
+          + "; ".join(f"{k[:60]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
+
+    # Card vs CPU: 2 layers at full width, the same weights, teacher-forced.
+    two = dataclasses.replace(cfg, num_layers=2)
+    card_w = {**lm.served, "blocks": tree_map(lambda a: a[:2], lm.served["blocks"])}
+    t0 = time.perf_counter()
+    with RecordRoutes() as card_r:
+        card = teacher_forced(card_w, two, prompts.to(dev))
+    with RecordRoutes() as host_r:
+        host = teacher_forced(tree_map(lambda t: t.cpu(), card_w), two, prompts)
+    parity = lm_compare(f"{tag}: card vs CPU, 2 layers, {LM_PROMPT} teacher-forced tokens "
+                        f"({time.perf_counter() - t0:.2f} s)", card, host, card_r, host_r, two)
+
+    # Decode vs the full forward on the card, every prompt position. Decode
+    # never drops an expert assignment (capacity >= batch); the forward's
+    # capacity is raised so it drops none either, and its shipped capacity
+    # is reported beside it.
+    fcfg = cfg
+    if cfg.moe:
+        if _capacity(LM_BATCH, cfg.moe) < LM_BATCH:
+            fail(f"{name}: decode at batch {LM_BATCH} could drop expert assignments")
+        fcfg = dataclasses.replace(
+            cfg, moe=cfg.moe._replace(capacity_factor=float(cfg.moe.num_experts)))
+    with RecordRoutes() as fwd_r:
+        fwd = full_forward(lm.served, fcfg, prompts.to(dev))
+    decode = lm_compare(f"{tag}: decode vs forward_train on the card, {LM_PROMPT} "
+                        f"positions x {LM_BATCH}", first.logits[:, :LM_PROMPT], fwd,
+                        prefill, fwd_r, cfg)
+    # The same at fp32 (the fp32 parameters, COMPUTE_DTYPE float32 for this
+    # check only), where rounding is far too small to flip all but the
+    # closest ties: it holds the tokens that bf16 flips leave out.
+    from repro_torch.models import common
+    common.COMPUTE_DTYPE = torch.float32
+    try:
+        with RecordRoutes() as dec32_r:
+            dec32 = teacher_forced(lm.params, cfg, prompts.to(dev))
+        with RecordRoutes() as fwd32_r:
+            fwd32 = full_forward(lm.params, fcfg, prompts.to(dev))
+    finally:
+        common.COMPUTE_DTYPE = torch.bfloat16
+    decode32 = lm_compare(f"{tag}: fp32 decode vs forward_train on the card", dec32, fwd32,
+                          dec32_r, fwd32_r, cfg)
+    if cfg.moe:
+        with RecordRoutes() as shipped:
+            full_forward(lm.served, cfg, prompts.to(dev))
+        cap = _capacity(LM_BATCH * LM_PROMPT, cfg.moe)
+        dropped = sum(int((torch.bincount(s.flatten(), minlength=cfg.moe.num_experts)
+                           - cap).clamp(min=0).sum()) for _, s in shipped.calls)
+        print(f"{tag}: at its shipped capacity ({cap} a layer and expert) the forward "
+              f"drops {dropped} of {cfg.num_layers * LM_BATCH * LM_PROMPT * cfg.moe.top_k} "
+              f"expert assignments (decode drops none), hence the raised capacity above",
+              flush=True)
+    out = {"arch": name, "layers": cfg.num_layers, "of_layers": full.num_layers,
+           "params": n_params, "prefill_s": second.prefill_s, "decode_ms": decode_ms,
+           "tok_s": tok_s, "peak_gb": peak / 1e9, "bound_ms": bound_ms,
+           "step_gb": step_bytes / 1e9, "profiled_busy_share": busy / wall,
+           "card_vs_cpu": parity, "decode_vs_forward": decode, "fp32_decode_vs_forward": decode32}
+    del lm, first, second, card, host, fwd, dec32, fwd32
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(dev, smi: str) -> list:
+    """Phase 15 on the card: LM serving through the port's entry point,
+    for each of LM_CONFIGS."""
+    t0 = time.perf_counter()
+    out = [lm_config_phase(name, layers, dev, smi) for name, layers in LM_CONFIGS]
+    for r in out:
+        print(f"[lm] {json.dumps(r)}", flush=True)
+    print(f"[lm] phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -1843,6 +2082,12 @@ def main() -> None:
         audit_tune_phase(dev)
         print(smi)
         return
+    if sys.argv[1:2] == ["--lm"]:
+        from repro_torch.kernels import build
+        build.build_all()
+        lm_phase(dev, smi)
+        print(smi)
+        return
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -1902,6 +2147,7 @@ def main() -> None:
     multi = multiproc_phase(dev, trained)
     recovery_phase(dev, multi)
     tuned = audit_tune_phase(dev)
+    lm_phase(dev, smi)
 
     t = timings["serve_F256"]
     launches = trained["launches"]

@@ -1,0 +1,32 @@
+"""qwen2.5-32b [dense]: 64L d_model=5120 40H (GQA kv=8) d_ff=27648
+vocab=152064 — GQA with QKV bias. [hf:Qwen/Qwen2.5-0.5B family scaling]"""
+
+from repro_torch.models.transformer import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    num_layers=64,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=27648,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen2.5-0.5B (family card; 32B dims per assignment)",
+)
+
+SMOKE = ArchConfig(
+    name="qwen2.5-32b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=256,
+    num_heads=8,
+    num_kv_heads=2,
+    d_ff=512,
+    vocab_size=512,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="reduced qwen2.5 family",
+)

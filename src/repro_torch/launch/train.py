@@ -15,7 +15,8 @@ exec.auto=tuned.json`` adopts a tuner result (``repro_torch.run.tune``).
 (every ``--ckpt-every`` epochs, default every epoch), ``--resume``
 continues from the newest valid snapshot there, and
 ``repro_torch.launch.serve --set serve.ckpt=DIR`` serves the trained
-parameters. The ``--arch`` path (LM training) is not ported.
+parameters. The ``--arch`` path (LM training) is not ported yet (ROADMAP
+A8(c)); LM serving is ``repro_torch.launch.serve_llm``.
 
 Examples:
   python -m repro_torch.launch.train --set exec.epochs=10

@@ -1,0 +1,21 @@
+from repro_torch.models.transformer import (
+    ArchConfig,
+    ServeCache,
+    compute_loss,
+    forward_train,
+    init_cache,
+    init_params,
+    serve_step,
+    train_step,
+)
+
+__all__ = [
+    "ArchConfig",
+    "ServeCache",
+    "compute_loss",
+    "forward_train",
+    "init_cache",
+    "init_params",
+    "serve_step",
+    "train_step",
+]
