@@ -130,29 +130,39 @@ the result line is printed:
              each quantized stage's wire rows.
 15. LM serving — the port's entry point (launch/serve_llm: build_lm,
              generate) on the card for tinyllama-1.1b (all 22 layers),
-             granite-moe-1b-a400m (all 24 layers, 32 experts, top-8) and
+             granite-moe-1b-a400m (all 24 layers, 32 experts, top-8),
              deepseek-v2-lite-16b (full width, the first 4 of 27 layers),
+             zamba2-2.7b (all 54 Mamba2 layers, the shared attention block
+             every 6th), xlstm-350m (all 24 layers: 6 groups of 3 mLSTM + 1
+             sLSTM) and whisper-small (12 + 12 layers, 1500 frames drawn
+             from seed 0 and encoded into the cross K/V in each prefill),
              random weights from a seed, fp32 with a bf16 copy. Each runs
              the default mix (batch 4, prompt 12 token by token, 24
              generated greedily) twice: prefill seconds, decode ms per step
-             and tokens/s of the second run, peak device memory, and the
-             decode bound (the bf16 weights a step reads, its routed experts
-             as the run selected them, and its cache, over 3.35 TB/s); every
-             logit finite; the second run bitwise equal to the first. Then,
-             within 2e-2 x max|logit|: 2 layers at full width, 12
-             teacher-forced tokens, on the card against the CPU with the
-             same weights; and every prompt position's decode logits against
-             forward_train on the card (for MoE at a capacity that drops no
-             assignment, as decode drops none; the shipped capacity's drops
-             are printed beside it), in bf16 and again in fp32 (the fp32
-             parameters: rounding that small flips hardly a tie, so it holds
-             the tokens bf16 flips leave out). A token whose experts
-             differ between two bf16 runs (a near-tie that rounding flips) is
-             counted and printed, and it and the later positions of its
-             sequence are left out of the bar; a flip no lower flip explains
-             must be a near-tie (within 2e-2 in the reference run's
-             probabilities). One profiled run of 5 serve_steps gives the
-             device's busy share.
+             and tokens/s of the second run, peak device memory above what
+             earlier phases hold, and the decode bound (the bf16 weights a
+             step reads, its routed experts as the run selected them, its
+             K/V caches, whisper's cross K/V, the recurrent states read and
+             written, over 3.35 TB/s); every logit finite; the second run
+             bitwise equal to the first. Then, within the bf16 bar x
+             max|logit| (serve_llm.bf16_bar: 2e-2; by depth zamba2 5e-2 at
+             6 layers and 0.15 at 54, xLSTM 4e-2 at 4 and 8e-2 at 24,
+             whisper 3e-2 at 12, about twice the reference's own): the
+             first layers at full width (2; whisper 2 + 2; zamba2 6, so the
+             shared block runs; xLSTM one group of 4), 12 teacher-forced
+             tokens, on the card against the CPU with the same weights; and
+             every prompt position's decode logits against forward_train on
+             the card (for MoE at a capacity that drops no assignment, as
+             decode drops none; the shipped capacity's drops are printed
+             beside it); and again in fp32 (the fp32 parameters) within
+             serve_llm.FP32_BAR (1e-5) x max|logit|: rounding that small
+             flips hardly a tie, so it holds the tokens bf16 flips leave
+             out. A token whose experts differ between two bf16 runs (a
+             near-tie that rounding flips) is counted and printed, and it
+             and the later positions of its sequence are left out of the
+             bar; a flip no lower flip explains must be a near-tie (within
+             2e-2 in the reference run's probabilities). One profiled run
+             of 5 serve_steps gives the device's busy share.
 16. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
@@ -1745,40 +1755,72 @@ def audit_tune_phase(dev) -> dict:
 
 # -- phase 15: LM serving -------------------------------------------------------
 
-# Card vs CPU and decode vs forward, × max|logit|: the JAX package's own bf16
-# decode differs from its fp32 decode by 0.70-0.84% of max|logit| on the
-# smoke configs of these three architectures.
-LM_BAR = 2e-2
+# Card vs CPU and decode vs forward, × max|logit|: serve_llm.bf16_bar at
+# bf16 (2e-2; more by family and depth where the reference's own distance
+# is larger) and serve_llm.FP32_BAR (1e-5) at fp32, the reasons beside
+# them there.
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 12, 24
 # (architecture, layers kept): deepseek's 27 layers are 64.8 GB in fp32,
-# which does not fit beside their bf16 copy and the work buffers.
+# which does not fit beside their bf16 copy and the work buffers; the
+# others run at full depth.
 LM_CONFIGS = (("tinyllama-1.1b", None), ("granite-moe-1b-a400m", None),
-              ("deepseek-v2-lite-16b", 4))
+              ("deepseek-v2-lite-16b", 4), ("zamba2-2.7b", None), ("xlstm-350m", None),
+              ("whisper-small", None))
 
 
 def lm_step_bytes(served, cfg, batch: int, experts_read: float,
                   tokens_read: float) -> float:
-    """Bytes one decode step must read: every compute-dtype weight it uses
+    """Bytes one decode step must move: every compute-dtype weight it uses
     once (the embedding's ``batch`` rows unless it is the tied head; the
     routed experts only as many as the step selects, ``experts_read``
-    summed over layers) and ``tokens_read`` cached tokens a layer."""
+    summed over layers; zamba2's shared block once; not whisper's encoder,
+    which runs once a request), ``tokens_read`` cached tokens of each K/V
+    or latent cache (zamba2's: one a shared-block application), whisper's
+    cross K/V whole, and every recurrent state and conv state read and
+    written."""
+    from repro_torch.models.transformer import init_cache
     from repro_torch.utils.trees import tree_bytes
 
     blocks = served["blocks"]
     experts = {k: blocks["moe"][k] for k in ("w_gate", "w_up", "w_down")} if cfg.moe else {}
-    rest = {k: v for k, v in served.items() if k not in ("embed", "blocks")}
+    rest = {k: v for k, v in served.items()
+            if k not in ("embed", "blocks", "enc_blocks", "enc_pos", "enc_norm")}
     total = tree_bytes(rest) + tree_bytes(blocks) - tree_bytes(experts)
     emb = served["embed"]
     total += tree_bytes(emb) if cfg.tie_embeddings else batch * emb[0].numel() * emb.element_size()
     if cfg.moe:
         total += experts_read * tree_bytes(experts) / (cfg.num_layers * cfg.moe.num_experts)
-    per_token = ((cfg.mla.kv_lora + cfg.mla.rope_dim) if cfg.mla
-                 else 2 * cfg.num_kv_heads * cfg.hd) * emb.element_size()
-    return total + tokens_read * batch * cfg.num_layers * per_token
+    one = init_cache(cfg, batch, 1, device="meta")      # one cached token a layer
+
+    def per_token(c) -> int:
+        return tree_bytes(c._replace(pos=None))
+
+    if cfg.family == "hybrid":
+        return total + 2 * tree_bytes(one.layers) + tokens_read * per_token(one.extra)
+    if cfg.family == "ssm":
+        return total + 2 * tree_bytes(one.layers)
+    return total + tokens_read * per_token(one.layers) + tree_bytes(one.extra)
 
 
-def lm_compare(label: str, got, want, got_routes, want_routes, cfg) -> dict:
-    """Logits [B, S, V] of two runs within LM_BAR x max|logit|. A token
+def lm_reduced(cfg, served):
+    """The config and weights of the card-vs-CPU check: full width, the
+    first layers only: 2 (whisper: 2 + 2), zamba2 ``attn_every`` (so the
+    shared block runs once), xLSTM one group."""
+    import dataclasses
+
+    from repro_torch.utils.trees import tree_map
+
+    n = {"hybrid": cfg.attn_every, "ssm": cfg.xlstm_group}.get(cfg.family, 2)
+    small = dataclasses.replace(cfg, num_layers=n, enc_layers=min(cfg.enc_layers, 2))
+    stacked = n // cfg.xlstm_group if cfg.family == "ssm" else n
+    weights = {**served, "blocks": tree_map(lambda a: a[:stacked], served["blocks"])}
+    if cfg.family == "audio":
+        weights["enc_blocks"] = tree_map(lambda a: a[:2], served["enc_blocks"])
+    return small, weights
+
+
+def lm_compare(label: str, got, want, got_routes, want_routes, cfg, bar: float) -> dict:
+    """Logits [B, S, V] of two runs within ``bar`` x max|logit|. A token
     whose experts differ between the runs in some layer (a near-tie that
     bf16 rounding flips) is counted and printed, and it and the later
     positions of its sequence that attend to it are left out of the bar;
@@ -1801,12 +1843,12 @@ def lm_compare(label: str, got, want, got_routes, want_routes, cfg) -> dict:
     err = float(per_token[keep].max()) * ref if bool(keep.any()) else 0.0
     worst = divmod(int(per_token.argmax()), s)
     print(f"{label}: max |diff| {err:.6g} = {err / ref:.4e} of max|logit| {ref:.6g} "
-          f"(bar {LM_BAR}); router flips (near-ties): {len(flipped)} tokens "
+          f"(bar {bar}); router flips (near-ties): {len(flipped)} tokens "
           f"{sorted(flipped)[:8]}, left out with the later positions of their "
           f"sequences: {len(affected)} of {b * s}; worst token {worst} at "
           f"{float(per_token.max()):.4e}", flush=True)
-    if not err <= LM_BAR * ref:
-        fail(f"{label}: logits differ by {err} > {LM_BAR} x {ref}")
+    if not err <= bar * ref:
+        fail(f"{label}: logits differ by {err} > {bar} x {ref}")
     return {"rel_err": err / ref, "flipped": len(flipped), "left_out": len(affected)}
 
 
@@ -1816,8 +1858,9 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve_llm import (RecordRoutes, build_lm, full_forward,
-                                              generate, teacher_forced)
+    from repro_torch.launch.serve_llm import (FP32_BAR, RecordRoutes, bf16_bar, build_lm,
+                                              draw_frames, full_forward, generate,
+                                              teacher_forced)
     from repro_torch.models.moe import _capacity
     from repro_torch.utils.trees import tree_bytes, tree_map
 
@@ -1829,6 +1872,7 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
            f"{full.param_count() * 4 / 1e9:.1f} GB)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)     # what earlier phases still hold
     t0 = time.perf_counter()
     lm = build_lm(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1840,14 +1884,16 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
           f"{tree_bytes(lm.served) / 1e9:.3f} GB, built in {build_s:.2f} s", flush=True)
     prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                             generator=torch.Generator().manual_seed(0))
+    # Whisper's frame embeddings, from seed 0; encoded in each run's prefill.
+    frames = draw_frames(cfg, LM_BATCH, 0) if cfg.family == "audio" else None
 
     # The default mix twice: the first run records the routing (for the
     # bound and the checks below) and is the reference of the second,
     # which is timed.
     with RecordRoutes() as routes:
-        first = generate(lm, prompts, LM_GEN)
-    second = generate(lm, prompts, LM_GEN)
-    peak = torch.cuda.max_memory_allocated(dev)
+        first = generate(lm, prompts, LM_GEN, frames)
+    second = generate(lm, prompts, LM_GEN, frames)
+    peak = torch.cuda.max_memory_allocated(dev) - held
     for run in (first, second):
         if not bool(torch.isfinite(run.logits).all()):
             fail(f"{name}: non-finite logits")
@@ -1868,33 +1914,38 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
     print(f"{tag}: batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN} (second run): "
           f"prefill {second.prefill_s:.4f} s, decode {decode_ms:.4f} ms/step "
           f"(CUDA-synchronized host clock, {steps} steps), {tok_s:.1f} tok/s, peak device "
-          f"memory {peak / 1e9:.3f} GB; decode bound {bound_ms:.4f} ms/step "
+          f"memory {peak / 1e9:.3f} GB (above the {held / 1e9:.3f} GB earlier phases hold); "
+          f"decode bound {bound_ms:.4f} ms/step "
           f"({step_bytes / 1e9:.4f} GB a step over 3.35 TB/s"
           + (f", {experts_read / cfg.num_layers:.2f} of {cfg.moe.num_experts} experts "
              f"a layer" if cfg.moe else "")
-          + f", cache {tokens_read:.0f} tokens a layer); {smi}", flush=True)
+          + f", K/V caches {tokens_read:.0f} tokens a layer); {smi}", flush=True)
     print(f"{tag}: logits finite; second run bitwise equal (tokens, "
           f"{tuple(second.logits.shape)} logits); req 0: {second.tokens[0, :12].tolist()}",
           flush=True)
     prefill = RecordRoutes()
     prefill.calls = routes.calls[:prefill_calls]
-    # Where a step's time goes: 5 serve_steps (1 prefill, 4 decode) profiled.
+    # Where a step's time goes: 5 serve_steps (1 prefill, 4 decode) profiled
+    # (whisper's against a zero cross cache: the same work, no encoder).
     wall, busy, by_name = profile_device(lambda: generate(lm, prompts[:, :1], 5))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"{tag}: profiled 5 serve_steps: wall {wall * 1e3:.3f} ms (profiler on), device "
           f"busy {busy * 1e3:.3f} ms ({1 - busy / wall:.2%} idle); top: "
           + "; ".join(f"{k[:60]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
 
-    # Card vs CPU: 2 layers at full width, the same weights, teacher-forced.
-    two = dataclasses.replace(cfg, num_layers=2)
-    card_w = {**lm.served, "blocks": tree_map(lambda a: a[:2], lm.served["blocks"])}
+    # Card vs CPU: the first layers at full width (lm_reduced), the same
+    # weights, teacher-forced.
+    small, card_w = lm_reduced(cfg, lm.served)
+    depth = (f"{small.num_layers} + {small.enc_layers} layers" if cfg.family == "audio"
+             else f"{small.num_layers} layers")
     t0 = time.perf_counter()
     with RecordRoutes() as card_r:
-        card = teacher_forced(card_w, two, prompts.to(dev))
+        card = teacher_forced(card_w, small, prompts.to(dev), frames)
     with RecordRoutes() as host_r:
-        host = teacher_forced(tree_map(lambda t: t.cpu(), card_w), two, prompts)
-    parity = lm_compare(f"{tag}: card vs CPU, 2 layers, {LM_PROMPT} teacher-forced tokens "
-                        f"({time.perf_counter() - t0:.2f} s)", card, host, card_r, host_r, two)
+        host = teacher_forced(tree_map(lambda t: t.cpu(), card_w), small, prompts, frames)
+    parity = lm_compare(f"{tag}: card vs CPU, {depth}, {LM_PROMPT} teacher-forced tokens "
+                        f"({time.perf_counter() - t0:.2f} s)", card, host, card_r, host_r,
+                        small, bf16_bar(small))
 
     # Decode vs the full forward on the card, every prompt position. Decode
     # never drops an expert assignment (capacity >= batch); the forward's
@@ -1907,10 +1958,10 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
         fcfg = dataclasses.replace(
             cfg, moe=cfg.moe._replace(capacity_factor=float(cfg.moe.num_experts)))
     with RecordRoutes() as fwd_r:
-        fwd = full_forward(lm.served, fcfg, prompts.to(dev))
+        fwd = full_forward(lm.served, fcfg, prompts.to(dev), frames)
     decode = lm_compare(f"{tag}: decode vs forward_train on the card, {LM_PROMPT} "
                         f"positions x {LM_BATCH}", first.logits[:, :LM_PROMPT], fwd,
-                        prefill, fwd_r, cfg)
+                        prefill, fwd_r, cfg, bf16_bar(cfg))
     # The same at fp32 (the fp32 parameters, COMPUTE_DTYPE float32 for this
     # check only), where rounding is far too small to flip all but the
     # closest ties: it holds the tokens that bf16 flips leave out.
@@ -1918,13 +1969,13 @@ def lm_config_phase(name: str, layers, dev, smi: str) -> dict:
     common.COMPUTE_DTYPE = torch.float32
     try:
         with RecordRoutes() as dec32_r:
-            dec32 = teacher_forced(lm.params, cfg, prompts.to(dev))
+            dec32 = teacher_forced(lm.params, cfg, prompts.to(dev), frames)
         with RecordRoutes() as fwd32_r:
-            fwd32 = full_forward(lm.params, fcfg, prompts.to(dev))
+            fwd32 = full_forward(lm.params, fcfg, prompts.to(dev), frames)
     finally:
         common.COMPUTE_DTYPE = torch.bfloat16
     decode32 = lm_compare(f"{tag}: fp32 decode vs forward_train on the card", dec32, fwd32,
-                          dec32_r, fwd32_r, cfg)
+                          dec32_r, fwd32_r, cfg, FP32_BAR)
     if cfg.moe:
         with RecordRoutes() as shipped:
             full_forward(lm.served, cfg, prompts.to(dev))

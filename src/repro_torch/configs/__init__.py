@@ -5,8 +5,7 @@ LM architectures and input shapes of ``repro.configs``.
 Every architecture config cites its source in ``source``. ``get_arch(name)``
 returns the full production config; ``get_smoke_arch(name)`` the reduced
 same-family variant (2 layers, d_model<=512, <=4 experts). The port serves
-the attention families; ``zamba2-2.7b``, ``xlstm-350m`` and
-``whisper-small`` stay listed and raise ``NotImplementedError``.
+all ten.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, get_shape
-from repro_torch.models.transformer import ArchConfig, not_ported
+from repro_torch.models.transformer import ArchConfig
 
 ARCH_MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
@@ -31,15 +30,10 @@ ARCH_MODULES = {
 
 ARCH_NAMES = list(ARCH_MODULES)
 
-# The architectures of the families the port does not serve yet, by family.
-NOT_PORTED = {"zamba2-2.7b": "hybrid", "xlstm-350m": "ssm", "whisper-small": "audio"}
-
 
 def _module(name: str):
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    if name in NOT_PORTED:
-        raise not_ported(NOT_PORTED[name])
     return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
 
 

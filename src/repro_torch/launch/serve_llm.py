@@ -1,22 +1,29 @@
 """Serve an LM with batched requests on the card: prefill, then greedy decode.
 
-The port of ``examples/serve_llm.py``, for the attention families
-(dense, vlm, moe, MLA): a batch of random prompts is prefilled token by
-token through ``serve_step`` (filling the KV or latent cache), then
-decoded greedily, one ``serve_step`` a token. ``--smoke`` takes the
-reduced config, as the JAX launcher's ``--arch --smoke`` does; without
-it, the full config. Weights are drawn from ``--seed`` in fp32 and cast
-once to the compute dtype (bf16) when the model is built: the models
-cast every weight to the activations' dtype at each product, so the cast
-copy gives the same bits. ``--device`` is the card by default; it raises
-if there is none. Both copies must fit the card: at full width
-qwen2.5-32b (131 GB in fp32) and deepseek-v2-lite-16b (64.8 GB in fp32,
-32.4 GB more for the copy) do not fit one 80 GB card.
+The port of ``examples/serve_llm.py``, for all ten architectures (dense,
+vlm, moe, MLA; hybrid Mamba2, xLSTM, Whisper): a batch of random prompts
+is prefilled token by token through ``serve_step`` (filling the KV,
+latent or recurrent cache), then decoded greedily, one ``serve_step`` a
+token. Whisper decodes against the cross K/V of frame embeddings
+(``encode_cross_kv``): the launcher draws them from ``--seed``, as
+``[B, enc_frames, d_model]`` normals (the reference's training draws
+them so); a caller that passes no frames serves with the reference's
+zero cross cache. ``--smoke`` takes the reduced config, as the JAX
+launcher's ``--arch --smoke`` does; without it, the full config. Weights
+are drawn from ``--seed`` in fp32 and cast once to the compute dtype
+(bf16) when the model is built, except the few the models read in fp32
+(``FP32_PARAMS``): the models cast every other weight to the activations'
+dtype at each product, so the cast copy gives the same bits. ``--device``
+is the card by default; it raises if there is none. Both copies must fit
+the card: at full width qwen2.5-32b (131 GB in fp32) and
+deepseek-v2-lite-16b (64.8 GB in fp32, 32.4 GB more for the copy) do not
+fit one 80 GB card.
 
 Examples:
   python -m repro_torch.launch.serve_llm
   python -m repro_torch.launch.serve_llm --arch granite-moe-1b-a400m --gen 32
-  python -m repro_torch.launch.serve_llm --smoke --device cpu
+  python -m repro_torch.launch.serve_llm --arch whisper-small
+  python -m repro_torch.launch.serve_llm --smoke --arch xlstm-350m --device cpu
 """
 
 from __future__ import annotations
@@ -28,9 +35,39 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import common as C
-from repro_torch.models.transformer import (ArchConfig, forward_train, init_cache,
-                                            init_params, serve_step)
-from repro_torch.utils.trees import tree_map
+from repro_torch.models.transformer import (FP32_PARAMS, ArchConfig, encode_cross_kv,
+                                            forward_train, init_cache, init_params,
+                                            serve_step)
+
+
+# Bars on two runs' logits, × max|logit|. bf16: two runs that round
+# differently (the card and the CPU, the port and the reference, decode and
+# the full forward). The reference's own bf16 logits are 0.62-0.84% of
+# max|logit| from its fp32 logits on the attention families' smoke configs,
+# and 2e-2 sits above them. Where the reference's own distance (bf16 vs
+# fp32, or its bf16 decode vs its bf16 forward) is larger, a family's bar
+# is about twice it at the depth compared, as (layers up to, bar) pairs:
+# the first that covers the run's depth applies. Measured with
+# tests/lm_reference_distances.py (2 seeds; the smoke configs' depths at
+# smoke width, the deeper ones at full width where the CPU holds them):
+# zamba2 2.136e-2 at its smoke 4 layers, 2.281e-2 at 6 (full width),
+# 7.39e-2 at 54 (smoke width); xLSTM 1.82e-2 at 4 layers and 2.33e-2 at 8
+# (full width), growing 1.9x from 4 to 24 layers at smoke width, so about
+# 3.5e-2 at 24; whisper 9.5e-3 at 2 + 2 (full width), 1.52e-2 at 12 + 12
+# (smoke width). fp32: decode against the full forward; the reference's own
+# distance is at most 4.3e-6 (zamba2, 54 layers), 2.1e-6 on the others.
+BF16_BAR = 2e-2
+BF16_BARS = {"hybrid": ((6, 5e-2), (54, 1.5e-1)),
+             "ssm": ((2, 2e-2), (4, 4e-2), (24, 8e-2)),
+             "audio": ((2, 2e-2), (12, 3e-2))}
+FP32_BAR = 1e-5
+
+
+def bf16_bar(cfg: ArchConfig) -> float:
+    for layers, bar in BF16_BARS.get(cfg.family, ()):
+        if cfg.num_layers <= layers:
+            return bar
+    return BF16_BAR
 
 
 def resolve_device(device) -> torch.device:
@@ -52,13 +89,16 @@ def resolve_device(device) -> torch.device:
 class LM(NamedTuple):
     cfg: ArchConfig
     params: dict             # fp32, as init_params draws them
-    served: dict             # the same, cast once to the compute dtype
+    served: dict             # the same, cast once to the compute dtype (compute_params)
     device: torch.device
 
 
 def compute_params(params):
-    """Every parameter cast once to the compute dtype."""
-    return tree_map(lambda t: t.to(C.COMPUTE_DTYPE), params)
+    """Every parameter cast once to the compute dtype, but for those the
+    models read in fp32 (``FP32_PARAMS``), which are kept."""
+    return {k: compute_params(v) if isinstance(v, dict)
+            else v if k in FP32_PARAMS else v.to(C.COMPUTE_DTYPE)
+            for k, v in params.items()}
 
 
 def build_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
@@ -81,9 +121,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def generate(lm: LM, prompts: torch.Tensor, gen: int) -> Generation:
+def with_frames(served, cfg: ArchConfig, cache, frames):
+    """``cache`` with whisper's cross K/V of ``frames`` [B, enc_frames,
+    d_model] (``encode_cross_kv``); without frames, ``cache`` as it is."""
+    if frames is None:
+        return cache
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name} ({cfg.family}) takes no frames")
+    k, v = encode_cross_kv(served, cfg, frames.to(cache.layers.k.device))
+    return cache._replace(extra={"k": k, "v": v})
+
+
+def draw_frames(cfg: ArchConfig, batch: int, seed: int) -> torch.Tensor:
+    """Whisper's stand-in frame embeddings [B, enc_frames, d_model]: fp32
+    normals from ``seed`` on the CPU."""
+    return torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def generate(lm: LM, prompts: torch.Tensor, gen: int, frames=None) -> Generation:
     """Prefill ``prompts`` [B, P] token by token, then decode ``gen`` tokens
-    greedily, all through ``serve_step``."""
+    greedily, all through ``serve_step``. Whisper's ``frames`` are encoded
+    into the cache's cross K/V first, inside the prefill's time."""
     cfg, dev = lm.cfg, lm.device
     b, plen = prompts.shape
     if plen < 1 or gen < 1:
@@ -94,6 +153,7 @@ def generate(lm: LM, prompts: torch.Tensor, gen: int) -> Generation:
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
+        cache = with_frames(lm.served, cfg, cache, frames)
         for i in range(plen):
             out, cache = serve_step(lm.served, cache, prompts[:, i:i + 1], cfg)
             logits.append(out)
@@ -114,23 +174,28 @@ def generate(lm: LM, prompts: torch.Tensor, gen: int) -> Generation:
                       decode_s, gen - 1)
 
 
-def teacher_forced(served, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def teacher_forced(served, cfg: ArchConfig, tokens: torch.Tensor,
+                   frames=None) -> torch.Tensor:
     """Logits [B, S, V] of ``serve_step`` fed ``tokens`` [B, S] one by one
-    (on ``tokens``' device)."""
+    (on ``tokens``' device; whisper's cross K/V from ``frames``, if given)."""
     b, s = tokens.shape
     cache = init_cache(cfg, b, s, device=tokens.device)
     out = []
     with torch.inference_mode():
+        cache = with_frames(served, cfg, cache, frames)
         for i in range(s):
             logits, cache = serve_step(served, cache, tokens[:, i:i + 1], cfg)
             out.append(logits)
     return torch.cat(out, 1)
 
 
-def full_forward(served, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits [B, S, V] of ``forward_train`` over ``tokens`` at once."""
+def full_forward(served, cfg: ArchConfig, tokens: torch.Tensor,
+                 frames=None) -> torch.Tensor:
+    """Logits [B, S, V] of ``forward_train`` over ``tokens`` at once
+    (whisper: over ``frames`` too)."""
+    extra = None if frames is None else {"frames": frames.to(tokens.device)}
     with torch.inference_mode():
-        return forward_train(served, cfg, tokens)[0]
+        return forward_train(served, cfg, tokens, extra)[0]
 
 
 class RecordRoutes:
@@ -231,7 +296,8 @@ def main(argv=None) -> int:
           f"({'reduced' if args.smoke else 'full'} config) on {dev}")
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(args.seed))
-    res = generate(lm, prompts, args.gen)
+    frames = draw_frames(cfg, args.batch, args.seed) if cfg.family == "audio" else None
+    res = generate(lm, prompts, args.gen, frames)
     print(f"prefill {args.prompt_len} tok x {args.batch} reqs: {res.prefill_s:.2f}s")
     print(f"decoded {args.gen} tok x {args.batch} reqs in {res.decode_s:.2f}s "
           f"({res.decode_s / max(res.decode_steps, 1) * 1e3:.0f} ms/step)")

@@ -2,6 +2,7 @@ from repro_torch.models.transformer import (
     ArchConfig,
     ServeCache,
     compute_loss,
+    encode_cross_kv,
     forward_train,
     init_cache,
     init_params,
@@ -13,6 +14,7 @@ __all__ = [
     "ArchConfig",
     "ServeCache",
     "compute_loss",
+    "encode_cross_kv",
     "forward_train",
     "init_cache",
     "init_params",

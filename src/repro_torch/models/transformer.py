@@ -1,12 +1,14 @@
 """Architecture-generic LM: config, init, forward and serve_step.
 
-The port of ``repro.models.transformer`` for the attention families
-(``dense``, ``moe``, ``vlm``; MoE with MLA for deepseek). Per-layer
+The port of ``repro.models.transformer`` for all six families: ``dense``,
+``moe`` (with MLA for deepseek) and ``vlm``; ``hybrid`` (Mamba2 with a
+shared attention block every ``attn_every`` layers), ``ssm`` (xLSTM
+groups) and ``audio`` (Whisper's encoder and decoder). Per-layer
 parameters and caches are stacked on a leading layer axis under the
 reference's key strings, as ``jax.vmap`` init leaves them, and a plain
-loop over layers replaces ``lax.scan``. ``hybrid`` (Mamba2), ``ssm``
-(xLSTM) and ``audio`` (Whisper) raise ``NotImplementedError``, as do
-``compute_loss`` and ``train_step`` (LM training).
+loop over layers replaces ``lax.scan`` (a Python ``if`` replaces
+``lax.cond``). ``compute_loss`` and ``train_step`` (LM training) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,31 +20,25 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
+from repro_torch.models import mamba2 as MB
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.utils.trees import tree_leaves, tree_map
 
-ATTENTION_FAMILIES = ("dense", "moe", "vlm")
-NOT_PORTED = {
-    "hybrid": "ROADMAP A8(b) ports its serving (models/mamba2.py and zamba2's "
-              "shared attention)",
-    "ssm": "ROADMAP A8(b) ports its serving (models/xlstm.py)",
-    "audio": "ROADMAP A8(b) ports its serving (whisper's encoder, "
-             "cross-attention and gelu_mlp)",
-}
-
-
-def not_ported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"family {family!r} is not ported to the PyTorch port yet: "
-        f"{NOT_PORTED[family]}")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+# Parameters the models read in fp32 whatever the compute dtype.
+FP32_PARAMS = MB.FP32_PARAMS + XL.FP32_PARAMS
 
 
 def _check_family(cfg) -> None:
-    if cfg.family in NOT_PORTED:
-        raise not_ported(cfg.family)
-    if cfg.family not in ATTENTION_FAMILIES:
+    if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
+    if cfg.family == "hybrid" and cfg.attn_every < 1:
+        raise ValueError(f"{cfg.name}: hybrid needs attn_every >= 1")
+    if cfg.family == "ssm" and cfg.num_layers % cfg.xlstm_group:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole groups "
+                         f"of {cfg.xlstm_group}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +63,11 @@ class ArchConfig:
     moe: Optional[MOE.MoEConfig] = None
     # mla (deepseek)
     mla: Optional[MLA.MLAConfig] = None
-    # ssm / hybrid (their modules are not ported: ROADMAP A8(b))
-    mamba: Optional[Any] = None
+    # ssm / hybrid
+    mamba: Optional[MB.MambaConfig] = None
     attn_every: int = 0            # hybrid: shared attn block every k layers
     # xlstm: layers grouped as (group_size-1) mLSTM + 1 sLSTM
-    xlstm: Optional[Any] = None
+    xlstm: Optional[XL.XLSTMConfig] = None
     xlstm_group: int = 4
     # audio (whisper)
     enc_layers: int = 0
@@ -157,6 +153,56 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _write(dst, src) -> None:
+    """Copy a layer's new recurrent state into its views of the stacked cache."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+def _init_mamba_block(gen, cfg: ArchConfig, lead, device):
+    return {
+        "norm": torch.ones(lead + (cfg.d_model,), device=device),
+        "mamba": MB.init_mamba(gen, cfg.d_model, cfg.mamba, lead, device),
+    }
+
+
+def _init_xlstm_group(gen, cfg: ArchConfig, lead, device):
+    return {
+        "mlstm": XL.init_mlstm_block(gen, cfg.xlstm, lead + (cfg.xlstm_group - 1,), device),
+        "slstm": XL.init_slstm_block(gen, cfg.xlstm, lead, device),
+    }
+
+
+def _norms(names, lead, d: int, device):
+    out = {}
+    for n in names:
+        out[f"{n}_norm_scale"] = torch.ones(lead + (d,), device=device)
+        out[f"{n}_norm_bias"] = torch.zeros(lead + (d,), device=device)
+    return out
+
+
+def _init_whisper_enc_block(gen, cfg: ArchConfig, lead, device):
+    return {
+        **_norms(("attn", "mlp"), lead, cfg.d_model, device),
+        "attn": A.init_attention(gen, cfg.d_model, cfg.attn_cfg(), lead, device),
+        "mlp": C.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, lead, device),
+    }
+
+
+def _init_whisper_dec_block(gen, cfg: ArchConfig, lead, device):
+    return {
+        **_norms(("self", "cross", "mlp"), lead, cfg.d_model, device),
+        "self_attn": A.init_attention(gen, cfg.d_model, cfg.attn_cfg(), lead, device),
+        "cross_attn": A.init_attention(gen, cfg.d_model, cfg.attn_cfg(), lead, device),
+        "mlp": C.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, lead, device),
+    }
+
+
+def _ln(x, p, name: str):
+    """Whisper's LayerNorm ``name`` (with a bias) of block ``p``."""
+    return C.layer_norm(x, p[f"{name}_norm_scale"], p[f"{name}_norm_bias"])
+
+
 # ------------------------------------------------------------------ params
 
 
@@ -172,7 +218,20 @@ def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = C.normal_init(gen, (cfg.d_model, cfg.vocab_size), device=dev)
-    p["blocks"] = _init_dense_block(gen, cfg, (cfg.num_layers,), dev)
+    layers = (cfg.num_layers,)
+    if cfg.family in ("dense", "moe", "vlm"):
+        p["blocks"] = _init_dense_block(gen, cfg, layers, dev)
+    elif cfg.family == "hybrid":
+        p["blocks"] = _init_mamba_block(gen, cfg, layers, dev)
+        p["shared_attn"] = _init_dense_block(gen, dataclasses.replace(cfg, moe=None),
+                                             (), dev)
+    elif cfg.family == "ssm":
+        p["blocks"] = _init_xlstm_group(gen, cfg, (cfg.num_layers // cfg.xlstm_group,), dev)
+    else:  # audio
+        p["blocks"] = _init_whisper_dec_block(gen, cfg, layers, dev)
+        p["enc_blocks"] = _init_whisper_enc_block(gen, cfg, (cfg.enc_layers,), dev)
+        p["enc_pos"] = C.normal_init(gen, (cfg.enc_frames, cfg.d_model), device=dev)
+        p["enc_norm"] = torch.ones((cfg.d_model,), device=dev)
     return p
 
 
@@ -217,12 +276,64 @@ def forward_train(params, cfg: ArchConfig, tokens: torch.Tensor,
     else:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
 
-    for i in range(cfg.num_layers):
-        h, a = _dense_block_train(_layer(params["blocks"], i), h, positions, cfg, window)
-        aux_total = aux_total + a
+    blocks = params["blocks"]
+    if cfg.family in ("dense", "moe", "vlm"):
+        for i in range(cfg.num_layers):
+            h, a = _dense_block_train(_layer(blocks, i), h, positions, cfg, window)
+            aux_total = aux_total + a
+    elif cfg.family == "hybrid":
+        k_every = cfg.attn_every
+        for i in range(cfg.num_layers):
+            p_l = _layer(blocks, i)
+            h = h + MB.mamba_train(p_l["mamba"], C.rms_norm(h, p_l["norm"], cfg.norm_eps),
+                                   cfg.mamba)
+            if i % k_every == k_every - 1:
+                h, _ = _dense_block_train(params["shared_attn"], h, positions, cfg, window)
+    elif cfg.family == "ssm":
+        for g in range(cfg.num_layers // cfg.xlstm_group):
+            p_g = _layer(blocks, g)
+            for j in range(cfg.xlstm_group - 1):
+                h = XL.mlstm_block_train(_layer(p_g["mlstm"], j), h, cfg.xlstm)
+            h = XL.slstm_block_train(p_g["slstm"], h, cfg.xlstm)
+    else:  # audio
+        if extra is None or "frames" not in extra:
+            raise ValueError(f"{cfg.name}: the forward needs extra['frames'] "
+                             f"[B, {cfg.enc_frames}, {cfg.d_model}]")
+        cross_k, cross_v = encode_cross_kv(params, cfg, extra["frames"])
+        acfg = cfg.attn_cfg()
+        for i in range(cfg.num_layers):
+            p_l = _layer(blocks, i)
+            h = h + A.attention_train(p_l["self_attn"], _ln(h, p_l, "self"), positions,
+                                      acfg, cfg.q_chunk)
+            h = h + A.cross_attention(p_l["cross_attn"], _ln(h, p_l, "cross"),
+                                      cross_k[i], cross_v[i], acfg)
+            h = h + C.gelu_mlp(_ln(h, p_l, "mlp"), **p_l["mlp"])
 
     h = C.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h @ _head(params, cfg).to(h.dtype), aux_total
+
+
+def encode_cross_kv(params, cfg: ArchConfig, frames: torch.Tensor):
+    """Whisper's encoder over ``frames`` [B, F, D] (precomputed frame
+    embeddings), then every decoder layer's cross-attention K and V of its
+    output: (k, v), each [L, B, F, KV, hd] in the compute dtype. The
+    reference computes them inside ``forward_train``; ``forward_train``
+    attends to these, and a serving cache's ``extra`` takes them (the
+    reference's ``init_cache`` leaves it zero)."""
+    b = frames.shape[0]
+    enc = frames.to(C.COMPUTE_DTYPE) + params["enc_pos"][None].to(C.COMPUTE_DTYPE)
+    acfg = cfg.attn_cfg()
+    for i in range(cfg.enc_layers):
+        p_l = _layer(params["enc_blocks"], i)
+        enc = enc + A.attention_encoder(p_l["attn"], _ln(enc, p_l, "attn"), acfg,
+                                        cfg.q_chunk)
+        enc = enc + C.gelu_mlp(_ln(enc, p_l, "mlp"), **p_l["mlp"])
+    enc = C.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    cross = params["blocks"]["cross_attn"]
+    k, v = (torch.stack([(enc @ w[i].to(enc.dtype)).reshape(b, -1, cfg.num_kv_heads, cfg.hd)
+                         for i in range(cfg.num_layers)])
+            for w in (cross["w_k"], cross["w_v"]))
+    return k, v
 
 
 def compute_loss(*args, **kwargs):
@@ -243,35 +354,102 @@ class ServeCache(NamedTuple):
     extra: Any           # e.g. hybrid shared-attn caches, audio cross K/V
 
 
+def _stack(one, lead):
+    """``one`` cache repeated on the leading axes ``lead`` (own buffers)."""
+    return tree_map(lambda x: x.expand(tuple(lead) + tuple(x.shape)).clone(), one)
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                window: Optional[int] = None, device=None) -> ServeCache:
-    """Cache for one-token decode with ``cache_len`` context on ``device``."""
+    """Cache for one-token decode with ``cache_len`` context on ``device``.
+    K/V caches are in the compute dtype, recurrent states fp32 (as the
+    reference's); whisper's cross K/V start at zero (``encode_cross_kv``
+    fills them)."""
     _check_family(cfg)
     eff_len = min(cache_len, window) if window else cache_len
-    if cfg.mla is not None:
-        one = MLA.init_mla_cache(batch, cache_len, cfg.mla, device=device)
-    else:
-        one = A.init_kv_cache(batch, eff_len, cfg.attn_cfg(window), device=device)
-    layers = tree_map(
-        lambda x: x.expand((cfg.num_layers,) + tuple(x.shape)).clone(), one)
-    return ServeCache(layers=layers, extra=None)
+    acfg = cfg.attn_cfg(window)
+    layers = (cfg.num_layers,)
+    if cfg.family in ("dense", "moe", "vlm"):
+        if cfg.mla is not None:
+            one = MLA.init_mla_cache(batch, cache_len, cfg.mla, device=device)
+        else:
+            one = A.init_kv_cache(batch, eff_len, acfg, device=device)
+        return ServeCache(layers=_stack(one, layers), extra=None)
+    if cfg.family == "hybrid":
+        n_apps = cfg.num_layers // cfg.attn_every
+        return ServeCache(
+            layers=_stack(MB.init_mamba_cache(batch, cfg.mamba, device=device), layers),
+            extra=_stack(A.init_kv_cache(batch, eff_len, acfg, device=device), (n_apps,)))
+    if cfg.family == "ssm":
+        groups = cfg.num_layers // cfg.xlstm_group
+        return ServeCache(layers={
+            "mlstm": _stack(XL.init_mlstm_cache(batch, cfg.xlstm, device=device),
+                            (groups, cfg.xlstm_group - 1)),
+            "slstm": _stack(XL.init_slstm_cache(batch, cfg.xlstm, device=device), (groups,)),
+        }, extra=None)
+    cross = (cfg.num_layers, batch, cfg.enc_frames, cfg.num_kv_heads, cfg.hd)
+    return ServeCache(
+        layers=_stack(A.init_kv_cache(batch, eff_len, acfg, device=device), layers),
+        extra={k: torch.zeros(cross, dtype=C.COMPUTE_DTYPE, device=device)
+               for k in ("k", "v")})
 
 
 def serve_step(params, cache: ServeCache, tokens: torch.Tensor, cfg: ArchConfig,
                window: Optional[int] = None):
     """Decode ONE token. tokens [B, 1] -> (logits [B, 1, V], new cache).
 
-    Each layer writes its new K/V (or latent) into ``cache``'s buffers in
-    place; the returned cache shares them and carries the advanced ``pos``.
+    Each layer writes its new K/V (or latent, or recurrent state) into
+    ``cache``'s buffers in place; the returned cache shares them and
+    carries the advanced ``pos``.
     """
     _check_family(cfg)
     h = params["embed"][tokens].to(C.COMPUTE_DTYPE)
-    new_pos = []
-    for i in range(cfg.num_layers):
-        h, c_l = _dense_block_decode(_layer(params["blocks"], i), h,
-                                     _layer(cache.layers, i), cfg, window)
-        new_pos.append(c_l.pos)
-    cache = ServeCache(layers=cache.layers._replace(pos=torch.stack(new_pos)),
-                       extra=None)
+    blocks, extra = params["blocks"], cache.extra
+    if cfg.family in ("dense", "moe", "vlm"):
+        new_pos = []
+        for i in range(cfg.num_layers):
+            h, c_l = _dense_block_decode(_layer(blocks, i), h, _layer(cache.layers, i),
+                                         cfg, window)
+            new_pos.append(c_l.pos)
+        layers = cache.layers._replace(pos=torch.stack(new_pos))
+    elif cfg.family == "hybrid":
+        k_every = cfg.attn_every
+        app_pos = list(extra.pos)
+        for i in range(cfg.num_layers):
+            p_l, c_l = _layer(blocks, i), _layer(cache.layers, i)
+            out, new = MB.mamba_decode(p_l["mamba"], C.rms_norm(h, p_l["norm"], cfg.norm_eps),
+                                       c_l, cfg.mamba)
+            _write(c_l, new)
+            h = h + out
+            if i % k_every == k_every - 1:
+                app = i // k_every
+                h, c_app = _dense_block_decode(params["shared_attn"], h, _layer(extra, app),
+                                               cfg, window)
+                app_pos[app] = c_app.pos
+        layers, extra = cache.layers, extra._replace(pos=torch.stack(app_pos))
+    elif cfg.family == "ssm":
+        for g in range(cfg.num_layers // cfg.xlstm_group):
+            p_g = _layer(blocks, g)
+            for j in range(cfg.xlstm_group - 1):
+                c_j = _layer(cache.layers["mlstm"], (g, j))
+                h, new = XL.mlstm_block_decode(_layer(p_g["mlstm"], j), h, c_j, cfg.xlstm)
+                _write(c_j, new)
+            c_g = _layer(cache.layers["slstm"], g)
+            h, new = XL.slstm_block_decode(p_g["slstm"], h, c_g, cfg.xlstm)
+            _write(c_g, new)
+        layers = cache.layers
+    else:  # audio
+        acfg = cfg.attn_cfg(window)
+        new_pos = []
+        for i in range(cfg.num_layers):
+            p_l = _layer(blocks, i)
+            out, c_l = A.attention_decode(p_l["self_attn"], _ln(h, p_l, "self"),
+                                          _layer(cache.layers, i), acfg)
+            h = h + out
+            h = h + A.cross_attention(p_l["cross_attn"], _ln(h, p_l, "cross"),
+                                      extra["k"][i], extra["v"][i], acfg)
+            h = h + C.gelu_mlp(_ln(h, p_l, "mlp"), **p_l["mlp"])
+            new_pos.append(c_l.pos)
+        layers = cache.layers._replace(pos=torch.stack(new_pos))
     h = C.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ _head(params, cfg).to(h.dtype), cache
+    return h @ _head(params, cfg).to(h.dtype), ServeCache(layers=layers, extra=extra)

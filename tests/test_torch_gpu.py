@@ -519,35 +519,39 @@ def test_exec_auto_on_card_equals_explicit_winner(cuda, tmp_path):
 # -- LM serving ---------------------------------------------------------------
 
 LM_ARCHS = ("tinyllama-1.1b", "llama3.2-3b", "qwen2.5-32b", "starcoder2-3b",
-            "qwen2-vl-2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b")
+            "qwen2-vl-2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+            "zamba2-2.7b", "xlstm-350m", "whisper-small")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_lm_serving_on_card_matches_cpu(cuda, name):
     """Smoke configs, bf16 as shipped: 8 teacher-forced serve_steps on the
-    card against the CPU from the same weights within 2e-2 × max|logit|
-    (a token whose experts flip on a near-tie is left out with the later
-    positions that attend to it, and a flip that is no near-tie fails); the
-    entry point's loop twice, bitwise."""
+    card against the CPU from the same weights within the family's bf16 bar
+    × max|logit| (``serve_llm.bf16_bar``; a token whose experts flip on a
+    near-tie is left out with the later positions that attend to it, and a
+    flip that is no near-tie fails); the entry point's loop twice, bitwise.
+    Whisper decodes against the cross K/V of frames drawn from a seed."""
     from repro_torch.configs import get_smoke_arch
-    from repro_torch.launch.serve_llm import (RecordRoutes, build_lm, generate,
-                                              router_flips, teacher_forced)
+    from repro_torch.launch.serve_llm import (RecordRoutes, bf16_bar, build_lm, draw_frames,
+                                              generate, router_flips, teacher_forced)
     from repro_torch.utils.trees import tree_map
 
     cfg = get_smoke_arch(name)
     lm = build_lm(cfg, 0, cuda)
     toks = torch.randint(0, cfg.vocab_size, (4, 8), generator=torch.Generator().manual_seed(0))
+    frames = draw_frames(cfg, 4, 0) if cfg.family == "audio" else None
     with RecordRoutes() as card_r:
-        card = teacher_forced(lm.served, cfg, toks.to(cuda)).float().cpu()
+        card = teacher_forced(lm.served, cfg, toks.to(cuda), frames).float().cpu()
     with RecordRoutes() as host_r:
-        host = teacher_forced(tree_map(lambda t: t.cpu(), lm.served), cfg, toks).float()
+        host = teacher_forced(tree_map(lambda t: t.cpu(), lm.served), cfg, toks,
+                              frames).float()
     _, affected, not_ties = router_flips(card_r, host_r, cfg, 4, 8)
     assert not not_ties
     keep = torch.ones((4, 8), dtype=torch.bool)
     for b, s in affected:
         keep[b, s] = False
-    assert (card - host)[keep].abs().max() <= 2e-2 * host.abs().max()
-    a, b = generate(lm, toks, 6), generate(lm, toks, 6)
+    assert (card - host)[keep].abs().max() <= bf16_bar(cfg) * host.abs().max()
+    a, b = generate(lm, toks, 6, frames), generate(lm, toks, 6, frames)
     assert torch.isfinite(a.logits).all()
     assert torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)

@@ -18,8 +18,10 @@ to it, are left out of the bar; and a flip that no lower flip explains
 must be between experts the reference itself rates within 2e-2 of each
 other (a near-tie that bf16 rounding flips, not a routing fault).
 
-Then widths without allocating (``param_count``, ``init_cache`` shapes),
-the rolling window buffer, the registry, and the entry point.
+Then widths without allocating (``param_count``, ``init_cache`` shapes)
+and the registry for all ten architectures, the rolling window buffer, and
+the entry point. The hybrid, ssm and audio families are held to the
+reference in ``test_torch_lm_families.py``.
 """
 
 import os
@@ -49,7 +51,6 @@ from repro_torch.utils.trees import tree_leaves
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["tinyllama-1.1b", "llama3.2-3b", "qwen2.5-32b", "starcoder2-3b",
          "qwen2-vl-2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
-UNPORTED = ["zamba2-2.7b", "xlstm-350m", "whisper-small"]
 BAR = {"f32": 1e-5, "bf16": 2e-2}       # × max|logit|
 B, S = 2, 8
 
@@ -261,17 +262,18 @@ def test_rolling_window_cache_matches_jax(models, monkeypatch):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", JCFG.ARCH_NAMES)
 def test_widths_without_allocating(name):
-    """Full configs: the parameter count from the meta device equals the
-    reference's (jax.eval_shape); init_cache's shapes and dtypes equal the
-    reference's at batch 1, length 16, and MLA's cache is latent-sized."""
+    """Full configs, all ten: the parameter count from the meta device
+    equals the reference's (jax.eval_shape); init_cache's shapes and dtypes
+    (its layers and its extra caches) equal the reference's at batch 1,
+    length 16, and MLA's cache is latent-sized."""
     jcfg, tcfg = JCFG.get_arch(name), TCFG.get_arch(name)
     assert tcfg == ArchConfig(**{f: getattr(tcfg, f) for f in tcfg.__dataclass_fields__})
     assert tcfg.param_count() == jcfg.param_count()
     jc = jax.eval_shape(lambda: JM.init_cache(jcfg, 1, 16))
     tc = TM.init_cache(tcfg, 1, 16, device="meta")
-    jl, tl = jax.tree_util.tree_leaves(jc.layers._asdict()), tree_leaves(tc.layers._asdict())
+    jl, tl = jax.tree_util.tree_leaves(jc), tree_leaves(tc)
     assert [tuple(t.shape) for t in tl] == [tuple(j.shape) for j in jl]
     assert [str(t.dtype).split(".")[-1] for t in tl] == [str(j.dtype) for j in jl]
     if tcfg.mla is not None:
@@ -280,34 +282,20 @@ def test_widths_without_allocating(name):
 
 
 def test_configs_copied_verbatim():
-    for name in ARCHS:
+    """All ten architectures, full and smoke, field for field (the module
+    configs of MoE, MLA, Mamba2 and xLSTM as tuples)."""
+    nested = ("moe", "mla", "mamba", "xlstm")
+    for name in JCFG.ARCH_NAMES:
         for get in ("get_arch", "get_smoke_arch"):
             j, t = getattr(JCFG, get)(name), getattr(TCFG, get)(name)
+            assert set(j.__dataclass_fields__) == set(t.__dataclass_fields__)
             for f in j.__dataclass_fields__:
                 jv, tv = getattr(j, f), getattr(t, f)
-                assert (tuple(jv) if f in ("moe", "mla") and jv else jv) == \
-                    (tuple(tv) if f in ("moe", "mla") and tv else tv), (name, f)
+                assert (tuple(jv) if f in nested and jv else jv) == \
+                    (tuple(tv) if f in nested and tv else tv), (name, f)
     assert TCFG.ARCH_NAMES == JCFG.ARCH_NAMES
     assert TCFG.INPUT_SHAPES == {k: TCFG.InputShape(*v.__dict__.values())
                                  for k, v in JCFG.INPUT_SHAPES.items()}
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_archs_name_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TCFG.get_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TCFG.get_smoke_arch(name)
-    family = JCFG.get_smoke_arch(name).family
-    cfg = ArchConfig(name=name, family=family, num_layers=2, d_model=8, num_heads=2,
-                     num_kv_heads=2, d_ff=8, vocab_size=16)
-    for call in (lambda: TM.init_params(torch.Generator(), cfg),
-                 lambda: TM.init_cache(cfg, 1, 4),
-                 cfg.param_count):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.train_step()
 
 
 def test_decode_matches_own_forward():
