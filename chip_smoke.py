@@ -9,6 +9,7 @@
                                           # rank's cost of the stacked draws
     python3 chip_smoke.py --tune          # phases 1, 2 and 14 only
     python3 chip_smoke.py --lm            # phases 1, 2 and 15 only
+    python3 chip_smoke.py --lm-train      # phases 1, 2 and 16 only
     python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
                                           # epochs, longer, on the checkout
                                           # at TREE (for parent/change A/B)
@@ -163,13 +164,36 @@ the result line is printed:
              bar; a flip no lower flip explains must be a near-tie (within
              2e-2 in the reference run's probabilities). One profiled run
              of 5 serve_steps gives the device's busy share.
-16. the kernels line (JSON, with each kernel's launches on every path), the
+16. LM training — models.train_step on the card, bf16 compute, fp32
+             parameters and AdamW, TF32 off: tinyllama-1.1b (all 22 layers)
+             and granite-moe-1b-a400m (all 24, 32 experts top-8, with the
+             aux loss) at full width, train_4k's 4096 tokens a sequence,
+             batch 8 (cut from 256) in 4 micro-batches of 8192 tokens,
+             TokenPipeline batches from seed 0, 5 steps from seed-0
+             parameters, twice: every loss finite, the fifth below the
+             first, the second run bitwise equal (losses, parameters,
+             AdamW state). Step ms of the second run (CUDA-synchronized
+             host clock), tokens/s, the model-FLOP share of 989 TFLOP/s
+             bf16, peak device memory above what earlier phases hold, the
+             busy share and top operations of one profiled step; granite's
+             dropped expert assignments at its shipped capacity. The
+             kernel launch counts are reset before and read after (the
+             path launches none). Then one train_step at
+             num_microbatches=2 on the card against the CPU from the same
+             parameters and batch, at full width with the first layers
+             (tinyllama, granite-moe, deepseek, qwen2-vl with patches 2;
+             zamba2 6 at 256 tokens; xLSTM 4; whisper 2 + 2): at fp32 the
+             loss within 1e-5 relative and every gradient, mu and nu leaf
+             within 1e-5 x its tree's max; at bf16 the loss within
+             serve_llm.bf16_bar; every gradient finite in both.
+17. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1802,16 +1826,23 @@ def lm_step_bytes(served, cfg, batch: int, experts_read: float,
     return total + tokens_read * per_token(one.layers) + tree_bytes(one.extra)
 
 
-def lm_reduced(cfg, served):
-    """The config and weights of the card-vs-CPU check: full width, the
-    first layers only: 2 (whisper: 2 + 2), zamba2 ``attn_every`` (so the
-    shared block runs once), xLSTM one group."""
+def lm_reduced_cfg(cfg):
+    """``cfg`` at full width with the first layers only: 2 (whisper: 2 +
+    2), zamba2 ``attn_every`` (so the shared block runs once), xLSTM one
+    group."""
     import dataclasses
 
+    n = {"hybrid": cfg.attn_every, "ssm": cfg.xlstm_group}.get(cfg.family, 2)
+    return dataclasses.replace(cfg, num_layers=n, enc_layers=min(cfg.enc_layers, 2))
+
+
+def lm_reduced(cfg, served):
+    """The config and weights of the card-vs-CPU check (``lm_reduced_cfg``:
+    full width, the first layers only)."""
     from repro_torch.utils.trees import tree_map
 
-    n = {"hybrid": cfg.attn_every, "ssm": cfg.xlstm_group}.get(cfg.family, 2)
-    small = dataclasses.replace(cfg, num_layers=n, enc_layers=min(cfg.enc_layers, 2))
+    small = lm_reduced_cfg(cfg)
+    n = small.num_layers
     stacked = n // cfg.xlstm_group if cfg.family == "ssm" else n
     weights = {**served, "blocks": tree_map(lambda a: a[:stacked], served["blocks"])}
     if cfg.family == "audio":
@@ -2007,6 +2038,273 @@ def lm_phase(dev, smi: str) -> list:
     return out
 
 
+# -- phase 16: LM training ------------------------------------------------------
+
+# The main path at full width and depth, at configs/shapes train_4k's 4096
+# tokens a sequence. Batch 8: train_4k's global batch of 256, cut to one
+# card; 4 micro-batches of 2 sequences, 8192 tokens each (the reference's
+# MB_TOKENS_PER_DEVICE, src/repro/launch/input_specs.py).
+LM_TRAIN_ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m")
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MB, LM_TRAIN_STEPS = 8, 4096, 4, 5
+BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 (data sheet)
+# Card vs CPU at fp32: the loss relative, each gradient, mu and nu leaf
+# × its tree's max; the GNN trainer's bar (cuBLAS sums the products in
+# another order than the CPU's BLAS).
+LM_TRAIN_FP32_BAR = 1e-5
+# Card vs CPU, one train_step at num_microbatches=2 over 2 sequences of
+# this many tokens, each configuration at full width with its first
+# layers (lm_reduced_cfg). zamba2 at 256 tokens: two of its 128-token SSD
+# chunks, the length where the reference's decay overflows (C-ref14).
+# qwen2-vl's sequences start with 64 patches (its 256 cut to keep the
+# CPU's side short; the count changes no code path).
+LM_TRAIN_REDUCED = (("tinyllama-1.1b", 128), ("granite-moe-1b-a400m", 128),
+                    ("deepseek-v2-lite-16b", 128), ("qwen2-vl-2b", 128),
+                    ("zamba2-2.7b", 256), ("xlstm-350m", 128), ("whisper-small", 128))
+LM_TRAIN_PATCHES = 64
+
+
+def lm_model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step over ``tokens`` tokens in sequences
+    of ``seq``: 6 x N x tokens, N the parameters of the products a token
+    passes through (all but the embedding gather; of the routed experts
+    only top_k of num_experts), plus PaLM's attention count, 12 x layers x
+    heads x head_dim x seq a token (both attention products over the whole
+    sequence, forward and backward). Recompute is not counted."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils.trees import param_count
+
+    meta = init_params(None, cfg, "meta")
+    n = param_count(meta) - (0 if cfg.tie_embeddings else meta["embed"].numel())
+    if cfg.moe:
+        experts = sum(meta["blocks"]["moe"][k].numel() for k in ("w_gate", "w_up", "w_down"))
+        n -= experts * (1 - cfg.moe.top_k / cfg.moe.num_experts)
+    return 6 * n * tokens + 12 * cfg.num_layers * cfg.num_heads * cfg.hd * seq * tokens
+
+
+def lm_train_run(cfg, batches, dev, profile: bool = False):
+    """LM_TRAIN_STEPS ``train_step``s from seed-0 parameters on ``dev``:
+    (losses, step seconds on the CUDA-synchronized host clock, params,
+    optimizer state, and with ``profile`` the last step's
+    ``profile_device`` reading)."""
+    import torch
+
+    from repro_torch.models import init_params, train_step
+    from repro_torch.optim import adamw_init
+
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw_init(params)
+    losses, secs, profiled = [], [], None
+    for i, batch in enumerate(batches):
+        def step():
+            return train_step(params, opt, batch, cfg, num_microbatches=LM_TRAIN_MB)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile and i == len(batches) - 1:
+            out = []
+            profiled = profile_device(lambda: out.append(step()))
+            params, opt, loss = out[0]
+        else:
+            params, opt, loss = step()
+        losses.append(float(loss))          # waits for the device
+        secs.append(time.perf_counter() - t0)
+    return losses, secs, params, opt, profiled
+
+
+def lm_train_config(name: str, dev, smi: str) -> dict:
+    """Phase 16 (a) and (b): ``name`` at full width and depth, trained
+    twice from the same seed on TokenPipeline batches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.serve_llm import RecordRoutes
+    from repro_torch.models import forward_train
+    from repro_torch.models.moe import _capacity
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_arch(name)
+    tag = f"[lm-train] {name}"
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    tokens = b * s
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(cfg.vocab_size, seed=0)
+    batches = [{"tokens": torch.from_numpy(pipe.batch(b, s)).to(dev)}
+               for _ in range(LM_TRAIN_STEPS)]
+    drawn_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)     # what earlier phases still hold
+    # The first run's last step is profiled (its values are compared, its
+    # times are not reported); the second run is timed.
+    losses, secs1, params1, opt1, (wall, busy, by_name) = lm_train_run(cfg, batches, dev,
+                                                                      profile=True)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    again, secs, params, opt, _ = lm_train_run(cfg, batches, dev)
+    if not all(map(math.isfinite, losses + again)):
+        fail(f"{name}: a training loss is not finite: {losses}, {again}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: the loss did not fall over {LM_TRAIN_STEPS} steps: {losses}")
+    same = (losses == again and opt.step == opt1.step and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves((params, opt.mu, opt.nu)),
+                                          tree_leaves((params1, opt1.mu, opt1.nu)))))
+    if not same:
+        fail(f"{name}: a second run from the same seed and batches is not bitwise "
+             f"equal: losses {losses} vs {again}")
+    del params1, opt1
+    step_s = statistics.median(secs)
+    flops = lm_model_flops(cfg, tokens, s)
+    n_params = cfg.param_count()
+    print(f"{tag}: full width and depth ({cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_heads}H, kv {cfg.num_kv_heads}, vocab {cfg.vocab_size}; {n_params:,} "
+          f"parameters), batch {b} x {s} tokens in {LM_TRAIN_MB} micro-batches of "
+          f"{tokens // LM_TRAIN_MB} tokens, bf16 compute, fp32 parameters and AdamW "
+          f"(batches drawn in {drawn_s:.2f} s); losses {[round(x, 6) for x in losses]}; "
+          f"second run bitwise equal (losses, parameters, AdamW state); first run step ms "
+          f"{[round(x * 1e3, 3) for x in secs1]} (the last profiled)", flush=True)
+    print(f"{tag}: second run, step ms {[round(x * 1e3, 3) for x in secs]} "
+          f"(CUDA-synchronized host clock), median {step_s * 1e3:.3f} ms, "
+          f"{tokens / step_s:.1f} tokens/s; model FLOPs {flops:.4e} a step "
+          f"(6 x N x tokens + 12 x L x H x hd x S x tokens), "
+          f"{flops / step_s / BF16_FLOP_PER_S:.2%} of 989 TFLOP/s bf16; peak device "
+          f"memory {peak / 1e9:.3f} GB (above the {held / 1e9:.3f} GB earlier phases "
+          f"hold); {smi}", flush=True)
+    out = {"arch": name, "params": n_params, "losses": losses, "step_ms": [x * 1e3 for x in secs],
+           "step_ms_median": step_s * 1e3, "tokens_s": tokens / step_s,
+           "model_flops": flops, "mfu_bf16": flops / step_s / BF16_FLOP_PER_S,
+           "peak_gb": peak / 1e9}
+    if cfg.moe:
+        first = batches[0]["tokens"][: b // LM_TRAIN_MB]
+        with torch.no_grad(), RecordRoutes() as shipped:
+            forward_train(params, cfg, first)
+        cap = _capacity(first.numel(), cfg.moe)
+        dropped = sum(int((torch.bincount(sel.flatten(), minlength=cfg.moe.num_experts)
+                           - cap).clamp(min=0).sum()) for _, sel in shipped.calls)
+        total = cfg.num_layers * first.numel() * cfg.moe.top_k
+        print(f"{tag}: the forward of one micro-batch ({first.numel()} tokens) at the "
+              f"shipped capacity ({cap} a layer and expert) drops {dropped} of {total} "
+              f"expert assignments ({dropped / total:.2%}), after {LM_TRAIN_STEPS} steps",
+              flush=True)
+        out["dropped"], out["assignments"] = dropped, total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{tag}: one profiled step (the first run's last): wall {wall * 1e3:.3f} ms "
+          f"(profiler on), device busy {busy * 1e3:.3f} ms ({busy / wall:.2%} busy); top: "
+          + "; ".join(f"{k[:90]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
+    out["profiled_busy_share"] = busy / wall
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_parity(name: str, seq: int, dev) -> dict:
+    """Phase 16 (c): one ``train_step`` at num_microbatches=2 (its two
+    halves, ``loss_and_grads`` and ``adamw_update`` at lr 3e-4 with the
+    clip at 1.0) on the card and on the CPU, from the same parameters and
+    batch: at fp32 the loss, every gradient leaf and AdamW's mu and nu; at
+    bf16 finite gradients on the card and its loss against the CPU's
+    forward. Each part's seconds are printed (the CPU's take most)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve_llm import bf16_bar
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import common, compute_loss, init_params, loss_and_grads
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(lm_reduced_cfg(get_arch(name)), vision_patches=LM_TRAIN_PATCHES)
+    tag = f"[lm-train] {name}: card vs CPU, " + (
+        f"{cfg.num_layers} + {cfg.enc_layers} layers" if cfg.family == "audio"
+        else f"{cfg.num_layers} layers") + f", 2 x {seq} tokens"
+    card = (init_params(torch.Generator(device=dev).manual_seed(0), cfg),
+            lm_batch(cfg, 2, seq, torch.Generator(device=dev).manual_seed(1)))
+    host = tuple(tree_map(lambda t: t.cpu(), x) for x in card)
+
+    def grads(dtype, params, batch):
+        common.COMPUTE_DTYPE = dtype
+        try:
+            loss, g = loss_and_grads(params, cfg, batch, num_microbatches=2)
+        finally:
+            common.COMPUTE_DTYPE = torch.bfloat16
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(g)):
+            fail(f"{tag}: a gradient is not finite at {dtype}")
+        return float(loss), g
+
+    def worst(got, want) -> float:
+        """Max |got - want| over the leaves, over the max |want|."""
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+        scale = max(float(w.abs().max()) for _, w in pairs)
+        return max(float((g.cpu() - w).abs().max()) for g, w in pairs) / scale
+
+    secs = {}
+
+    def timed(what, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t
+        return out
+
+    t0 = time.perf_counter()
+    lc, gc = timed("card fp32", grads, torch.float32, *card)
+    _, oc = timed("card adamw", lambda: adamw_update(gc, adamw_init(card[0]), card[0], 3e-4,
+                                                      grad_clip=1.0))
+    lh, gh = timed("cpu fp32", grads, torch.float32, *host)
+    _, oh = timed("cpu adamw", lambda: adamw_update(gh, adamw_init(host[0]), host[0], 3e-4,
+                                                     grad_clip=1.0))
+    out = timed("compare", lambda: {
+        "fp32_loss_rel": abs(lc - lh) / abs(lh), "fp32_grads": worst(gc, gh),
+        "fp32_mu": worst(oc.mu, oh.mu), "fp32_nu": worst(oc.nu, oh.nu)})
+    if not all(v <= LM_TRAIN_FP32_BAR for v in out.values()):
+        fail(f"{tag}: fp32 loss {lc} vs {lh}; relative errors {out} (bar {LM_TRAIN_FP32_BAR})")
+    del gc, gh, oc, oh
+    # bf16: the card's gradients must be finite; its loss against the
+    # CPU's forward alone, over the same two micro-batches of one row.
+    lc, _ = timed("card bf16", grads, torch.bfloat16, *card)
+
+    def host_loss():
+        with torch.no_grad():
+            return sum(compute_loss(host[0], cfg, {k: v[i:i + 1] for k, v in host[1].items()})
+                       / 2 for i in range(2))
+
+    lh = float(timed("cpu bf16 loss", host_loss))
+    out["bf16_loss_rel"] = abs(lc - lh) / abs(lh)
+    if not out["bf16_loss_rel"] <= bf16_bar(cfg):
+        fail(f"{tag}: bf16 loss {lc} vs {lh}: {out['bf16_loss_rel']} > {bf16_bar(cfg)}")
+    print(f"{tag} ({time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"): fp32 loss {out['fp32_loss_rel']:.3e} relative, worst gradient leaf {out['fp32_grads']:.3e}, mu {out['fp32_mu']:.3e}, "
+          f"nu {out['fp32_nu']:.3e} of the tree's max (bar {LM_TRAIN_FP32_BAR}); bf16 loss "
+          f"{out['bf16_loss_rel']:.3e} relative (bar {bf16_bar(cfg)}); every gradient "
+          f"finite", flush=True)
+    return {"arch": name, "layers": cfg.num_layers, "seq": seq, **out}
+
+
+def lm_train_phase(dev, smi: str) -> dict:
+    """Phase 16 on the card: LM training at full width and depth (the
+    kernel launch counts reset just before and read just after), then
+    card vs CPU for each family. The card's arithmetic is the launchers'
+    (``resolve_device``: no TF32, no bf16 reduction of split-K partial
+    sums), whether or not phase 15 ran first."""
+    from repro_torch.launch.serve_llm import resolve_device
+
+    resolve_device(dev)
+    t0 = time.perf_counter()
+    reset_counts()
+    trained = [lm_train_config(name, dev, smi) for name in LM_TRAIN_ARCHS]
+    launches = counts()
+    print(f"[lm-train] kernel launches on the LM training path: {launches}", flush=True)
+    t1 = time.perf_counter()
+    parity = [lm_train_parity(name, seq, dev) for name, seq in LM_TRAIN_REDUCED]
+    for r in trained + parity:
+        print(f"[lm-train] {json.dumps(r)}", flush=True)
+    print(f"[lm-train] phase 16 in {time.perf_counter() - t0:.1f} s (card vs CPU "
+          f"{time.perf_counter() - t1:.1f} s)", flush=True)
+    return {"launches": launches, "trained": trained, "parity": parity}
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -2139,6 +2437,12 @@ def main() -> None:
         lm_phase(dev, smi)
         print(smi)
         return
+    if sys.argv[1:2] == ["--lm-train"]:
+        from repro_torch.kernels import build
+        build.build_all()
+        lm_train_phase(dev, smi)
+        print(smi)
+        return
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -2199,6 +2503,7 @@ def main() -> None:
     recovery_phase(dev, multi)
     tuned = audit_tune_phase(dev)
     lm_phase(dev, smi)
+    lm_trained = lm_train_phase(dev, smi)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -2224,7 +2529,8 @@ def main() -> None:
     paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
-             "multiproc": multi["launches"], "tune": tuned["launches"]}
+             "multiproc": multi["launches"], "tune": tuned["launches"],
+             "lm_train": lm_trained["launches"]}
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
     for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):

@@ -1,12 +1,21 @@
-"""Training launcher on the card: the paper's distributed full-batch GCN.
+"""Training launcher on the card: the paper's distributed full-batch GCN,
+and LM training for any of the ten architectures.
 
-The port of ``repro.launch.train --gcn``: a :class:`repro_torch.run.RunSpec`
-(``--spec file.json`` + ``--set section.field=value``; without ``--spec``,
-``configs/train_products_paper``) is lowered by ``build_session`` onto
-``--device`` (the card by default; it raises if there is none), with all
-workers stacked on that device (``exec.mode=vmap``) or one process per
-worker sharing it through host mailboxes (``exec.mode=multiproc``), and
-trained for ``exec.epochs`` epochs. The JAX launcher's explicit flags
+``--arch NAME`` trains that LM on random tokens (the port of the JAX
+launcher's ``--arch`` path): ``--smoke`` takes the reduced config, without
+it the full one; parameters are drawn from ``--seed`` on the device,
+batches of ``--batch`` sequences of ``--seq-len`` uniform tokens from
+``--seed`` + 1 (with whisper's frames and the vlm's patches as normals),
+and each of ``--steps`` steps is one ``train_step`` over
+``--microbatches`` micro-batches, printed as ``step i: loss x (t s)``.
+
+Otherwise (``--gcn``, or no ``--arch``): a
+:class:`repro_torch.run.RunSpec` (``--spec file.json`` + ``--set
+section.field=value``; without ``--spec``, ``configs/train_products_paper``)
+is lowered by ``build_session`` onto ``--device``, with all workers
+stacked on that device (``exec.mode=vmap``) or one process per worker
+sharing it through host mailboxes (``exec.mode=multiproc``), and trained
+for ``exec.epochs`` epochs. The JAX launcher's explicit flags
 (``--nparts``, ``--bits``, ``--inter-cd``, ...) are accepted as aliases
 onto the same spec paths (``run.cli.LEGACY_ALIASES``; ``--set`` wins over
 them), as are ``--save-spec`` and ``--print-spec``; ``--set
@@ -15,10 +24,15 @@ exec.auto=tuned.json`` adopts a tuner result (``repro_torch.run.tune``).
 (every ``--ckpt-every`` epochs, default every epoch), ``--resume``
 continues from the newest valid snapshot there, and
 ``repro_torch.launch.serve --set serve.ckpt=DIR`` serves the trained
-parameters. The ``--arch`` path (LM training) is not ported yet (ROADMAP
-A8(c)); LM serving is ``repro_torch.launch.serve_llm``.
+parameters. LM serving is ``repro_torch.launch.serve_llm``.
+
+``--device`` is the card by default; it raises if there is none.
 
 Examples:
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke --steps 5
+  python -m repro_torch.launch.train --arch granite-moe-1b-a400m --batch 8 \
+      --seq-len 4096 --microbatches 4
+  python -m repro_torch.launch.train --arch xlstm-350m --smoke --device cpu
   python -m repro_torch.launch.train --set exec.epochs=10
   python -m repro_torch.launch.train --spec specs/flagship_hier_int2_overlap.json \
       --set exec.mode=vmap --device cpu
@@ -74,14 +88,71 @@ def add_legacy_args(ap: argparse.ArgumentParser) -> None:
                             **_LEGACY_KW.get(dest, {"type": int}))
 
 
+def lm_batch(cfg, batch: int, seq_len: int, gen):
+    """One training batch on ``gen``'s device: ``tokens`` [B, S] uniform in
+    the vocabulary, plus whisper's ``frames`` [B, enc_frames, D] and the
+    vlm's ``patches`` [B, vision_patches, D] as standard normals, in that
+    order of draws (the JAX launcher's law, not its values)."""
+    import torch
+
+    dev = gen.device
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen,
+                                   device=dev)}
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen,
+                                    device=dev)
+    if cfg.family == "vlm":
+        if seq_len <= cfg.vision_patches:
+            raise ValueError(f"{cfg.name}: --seq-len {seq_len} leaves no text after "
+                             f"its {cfg.vision_patches} patches")
+        out["patches"] = torch.randn((batch, cfg.vision_patches, cfg.d_model),
+                                     generator=gen, device=dev)
+    return out
+
+
+def run_lm(args) -> None:
+    import torch
+
+    from repro_torch.configs import get_arch, get_smoke_arch
+    from repro_torch.launch.serve_llm import resolve_device
+    from repro_torch.models import init_params, train_step
+    from repro_torch.optim import adamw_init
+
+    dev = resolve_device(args.device)
+    seed = args.seed if args.seed is not None else 0
+    cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    opt = adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    print(f"arch {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
+          f"({'reduced' if args.smoke else 'full'} config) on {dev}; batch {args.batch} x "
+          f"{args.seq_len} tokens in {args.microbatches} micro-batches", flush=True)
+    for i in range(args.steps):
+        batch = lm_batch(cfg, args.batch, args.seq_len, gen)
+        t0 = time.perf_counter()
+        params, opt, loss = train_step(params, opt, batch, cfg,
+                                       num_microbatches=args.microbatches)
+        loss = float(loss)                  # waits for the device
+        print(f"step {i}: loss {loss:.4f} ({time.perf_counter() - t0:.2f}s)", flush=True)
+
+
 def main(argv=None) -> int:
     from repro_torch.run import add_spec_args, spec_from_args
 
     ap = argparse.ArgumentParser(
-        description="Train the paper's distributed GCN from a RunSpec")
+        description="Train the paper's distributed GCN from a RunSpec, or an LM (--arch)")
     ap.add_argument("--gcn", action="store_true",
-                    help="the GCN trainer (the only one ported; accepted for "
-                         "the JAX launcher's command lines)")
+                    help="the GCN trainer (the default without --arch; accepted "
+                         "for the JAX launcher's command lines)")
+    ap.add_argument("--arch", default=None,
+                    help="train this LM architecture in place of the GCN")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--arch: the reduced config (2 layers, narrow)")
+    ap.add_argument("--steps", type=int, default=5, help="--arch: optimizer steps")
+    ap.add_argument("--batch", type=int, default=4, help="--arch: sequences a step")
+    ap.add_argument("--seq-len", type=int, default=128, help="--arch: tokens a sequence")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="--arch: micro-batches a step (gradient accumulation)")
     # defaults (train_products_paper) < --spec < legacy flags < --set
     add_spec_args(ap)
     add_legacy_args(ap)
@@ -95,6 +166,11 @@ def main(argv=None) -> int:
                          "before training (the resumed run reproduces the "
                          "uninterrupted loss trajectory)")
     args = ap.parse_args(argv)
+    if args.arch and args.gcn:
+        ap.error("choose --gcn or --arch NAME")
+    if args.arch:
+        run_lm(args)
+        return 0
 
     from repro_torch.configs.train_products_paper import train_products_paper
     from repro_torch.run import build_session

@@ -6,6 +6,7 @@ from repro_torch.models.transformer import (
     forward_train,
     init_cache,
     init_params,
+    loss_and_grads,
     serve_step,
     train_step,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "forward_train",
     "init_cache",
     "init_params",
+    "loss_and_grads",
     "serve_step",
     "train_step",
 ]

@@ -93,7 +93,10 @@ def _ssd_chunked(xh, dt, A, B, Cc, cfg: MambaConfig):
         cum = torch.cumsum(dtac, dim=1)                        # [B, Q, H]
         # Intra-chunk (attention-like with decay), strictly causal + diagonal.
         rel = cum[:, :, None, :] - cum[:, None, :, :]          # [B, T, S_, H]
-        decay = torch.where(causal[None, :, :, None], torch.exp(rel), 0.0)
+        # Masked before the exp: above the diagonal ``rel`` is a positive sum
+        # that overflows fp32 at long chunks, and where(mask, inf, 0) has a
+        # NaN gradient. exp(-inf) = 0 gives the same forward.
+        decay = torch.exp(torch.where(causal[None, :, :, None], rel, -torch.inf))
         scores = torch.einsum("btn,bsn->bts", cc, bc)          # [B, T, S_]
         m = scores[:, :, :, None] * decay                      # [B, T, S_, H]
         y_intra = torch.einsum("btsh,bsh,bshp->bthp", m, dtc, xc)

@@ -1,4 +1,4 @@
-"""Architecture-generic LM: config, init, forward and serve_step.
+"""Architecture-generic LM: config, init, forward, training and serve_step.
 
 The port of ``repro.models.transformer`` for all six families: ``dense``,
 ``moe`` (with MLA for deepseek) and ``vlm``; ``hybrid`` (Mamba2 with a
@@ -7,8 +7,11 @@ groups) and ``audio`` (Whisper's encoder and decoder). Per-layer
 parameters and caches are stacked on a leading layer axis under the
 reference's key strings, as ``jax.vmap`` init leaves them, and a plain
 loop over layers replaces ``lax.scan`` (a Python ``if`` replaces
-``lax.cond``). ``compute_loss`` and ``train_step`` (LM training) raise
-``NotImplementedError``.
+``lax.cond``). While autograd records, each block the reference wraps in
+``jax.checkpoint`` runs under ``torch.utils.checkpoint`` (its
+activations are recomputed in the backward), and ``train_step`` is the
+reference's: micro-batches of consecutive rows, fp32 gradient
+accumulation, AdamW with a gradient clip of 1.0.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
@@ -24,6 +28,7 @@ from repro_torch.models import mamba2 as MB
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as XL
+from repro_torch.optim.adamw import adamw_update
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
@@ -153,6 +158,25 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _unbind(tree) -> list:
+    """The layers of a stacked parameter tree, each leaf unbound once: its
+    backward is one ``stack``, where ``_layer`` per layer would back each
+    select into a zero-filled tensor the size of the whole stack."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    per = {k: _unbind(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _recompute(fn, *args):
+    """``fn(*args)``; while autograd records, its activations are dropped
+    and recomputed in the backward (the reference's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _write(dst, src) -> None:
     """Copy a layer's new recurrent state into its views of the stacked cache."""
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
@@ -201,6 +225,29 @@ def _init_whisper_dec_block(gen, cfg: ArchConfig, lead, device):
 def _ln(x, p, name: str):
     """Whisper's LayerNorm ``name`` (with a bias) of block ``p``."""
     return C.layer_norm(x, p[f"{name}_norm_scale"], p[f"{name}_norm_bias"])
+
+
+def _whisper_enc_block(p, x, cfg: ArchConfig):
+    x = x + A.attention_encoder(p["attn"], _ln(x, p, "attn"), cfg.attn_cfg(), cfg.q_chunk)
+    return x + C.gelu_mlp(_ln(x, p, "mlp"), **p["mlp"])
+
+
+def _whisper_dec_block(p, h, k, v, positions, cfg: ArchConfig):
+    acfg = cfg.attn_cfg()
+    h = h + A.attention_train(p["self_attn"], _ln(h, p, "self"), positions, acfg,
+                              cfg.q_chunk)
+    h = h + A.cross_attention(p["cross_attn"], _ln(h, p, "cross"), k, v, acfg)
+    return h + C.gelu_mlp(_ln(h, p, "mlp"), **p["mlp"])
+
+
+def _mamba_block(p, h, cfg: ArchConfig):
+    return MB.mamba_train(p["mamba"], C.rms_norm(h, p["norm"], cfg.norm_eps), cfg.mamba)
+
+
+def _xlstm_group(p, h, cfg: ArchConfig):
+    for p_m in _unbind(p["mlstm"]):
+        h = XL.mlstm_block_train(p_m, h, cfg.xlstm)
+    return XL.slstm_block_train(p["slstm"], h, cfg.xlstm)
 
 
 # ------------------------------------------------------------------ params
@@ -260,7 +307,8 @@ def forward_train(params, cfg: ArchConfig, tokens: torch.Tensor,
                   extra: Optional[Dict[str, torch.Tensor]] = None,
                   window: Optional[int] = None):
     """tokens [B, S] -> logits [B, S, V] (bf16 compute), plus moe aux loss.
-    Forward only: the prefill counterpart of ``serve_step``."""
+    Differentiable (``compute_loss``); under ``no_grad`` it is the prefill
+    counterpart of ``serve_step``."""
     _check_family(cfg)
     b, s = tokens.shape
     dev = tokens.device
@@ -276,38 +324,30 @@ def forward_train(params, cfg: ArchConfig, tokens: torch.Tensor,
     else:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
 
-    blocks = params["blocks"]
+    blocks = _unbind(params["blocks"])
     if cfg.family in ("dense", "moe", "vlm"):
-        for i in range(cfg.num_layers):
-            h, a = _dense_block_train(_layer(blocks, i), h, positions, cfg, window)
+        def block(p, x):
+            return _dense_block_train(p, x, positions, cfg, window)
+
+        for p_l in blocks:
+            h, a = _recompute(block, p_l, h)
             aux_total = aux_total + a
     elif cfg.family == "hybrid":
         k_every = cfg.attn_every
-        for i in range(cfg.num_layers):
-            p_l = _layer(blocks, i)
-            h = h + MB.mamba_train(p_l["mamba"], C.rms_norm(h, p_l["norm"], cfg.norm_eps),
-                                   cfg.mamba)
-            if i % k_every == k_every - 1:
+        for i, p_l in enumerate(blocks):
+            h = h + _recompute(_mamba_block, p_l, h, cfg)
+            if i % k_every == k_every - 1:   # the shared block is not recomputed
                 h, _ = _dense_block_train(params["shared_attn"], h, positions, cfg, window)
     elif cfg.family == "ssm":
-        for g in range(cfg.num_layers // cfg.xlstm_group):
-            p_g = _layer(blocks, g)
-            for j in range(cfg.xlstm_group - 1):
-                h = XL.mlstm_block_train(_layer(p_g["mlstm"], j), h, cfg.xlstm)
-            h = XL.slstm_block_train(p_g["slstm"], h, cfg.xlstm)
+        for p_g in blocks:
+            h = _recompute(_xlstm_group, p_g, h, cfg)
     else:  # audio
         if extra is None or "frames" not in extra:
             raise ValueError(f"{cfg.name}: the forward needs extra['frames'] "
                              f"[B, {cfg.enc_frames}, {cfg.d_model}]")
         cross_k, cross_v = encode_cross_kv(params, cfg, extra["frames"])
-        acfg = cfg.attn_cfg()
-        for i in range(cfg.num_layers):
-            p_l = _layer(blocks, i)
-            h = h + A.attention_train(p_l["self_attn"], _ln(h, p_l, "self"), positions,
-                                      acfg, cfg.q_chunk)
-            h = h + A.cross_attention(p_l["cross_attn"], _ln(h, p_l, "cross"),
-                                      cross_k[i], cross_v[i], acfg)
-            h = h + C.gelu_mlp(_ln(h, p_l, "mlp"), **p_l["mlp"])
+        for p_l, k_l, v_l in zip(blocks, cross_k.unbind(0), cross_v.unbind(0)):
+            h = _recompute(_whisper_dec_block, p_l, h, k_l, v_l, positions, cfg)
 
     h = C.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h @ _head(params, cfg).to(h.dtype), aux_total
@@ -322,28 +362,78 @@ def encode_cross_kv(params, cfg: ArchConfig, frames: torch.Tensor):
     reference's ``init_cache`` leaves it zero)."""
     b = frames.shape[0]
     enc = frames.to(C.COMPUTE_DTYPE) + params["enc_pos"][None].to(C.COMPUTE_DTYPE)
-    acfg = cfg.attn_cfg()
-    for i in range(cfg.enc_layers):
-        p_l = _layer(params["enc_blocks"], i)
-        enc = enc + A.attention_encoder(p_l["attn"], _ln(enc, p_l, "attn"), acfg,
-                                        cfg.q_chunk)
-        enc = enc + C.gelu_mlp(_ln(enc, p_l, "mlp"), **p_l["mlp"])
+    for p_l in _unbind(params["enc_blocks"]):
+        enc = _recompute(_whisper_enc_block, p_l, enc, cfg)
     enc = C.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
     cross = params["blocks"]["cross_attn"]
-    k, v = (torch.stack([(enc @ w[i].to(enc.dtype)).reshape(b, -1, cfg.num_kv_heads, cfg.hd)
-                         for i in range(cfg.num_layers)])
+    k, v = (torch.stack([(enc @ w_l.to(enc.dtype)).reshape(b, -1, cfg.num_kv_heads, cfg.hd)
+                         for w_l in w.unbind(0)])
             for w in (cross["w_k"], cross["w_v"]))
     return k, v
 
 
-def compute_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "LM training is not ported to the PyTorch port yet: ROADMAP A8(c)")
+# -------------------------------------------------------------- train step
 
 
-def train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "LM training is not ported to the PyTorch port yet: ROADMAP A8(c)")
+def compute_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross entropy over ``batch["tokens"]`` [B, S] (masked by
+    ``batch["loss_mask"]`` where given, never at the last position) plus
+    the MoE aux loss; every other key of ``batch`` goes to the forward."""
+    tokens = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k not in ("tokens", "loss_mask")}
+    logits, aux = forward_train(params, cfg, tokens, extra or None, window)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+            if mask is None else mask.clone())
+    mask[:, -1] = 0  # no target for the final position
+    return C.cross_entropy(logits, labels, mask) + aux
+
+
+def loss_and_grads(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+                   num_microbatches: int = 1, window: Optional[int] = None):
+    """(loss, grads) of ``compute_loss``, as ``train_step`` takes them: with
+    ``nm = num_microbatches > 1``, micro-batch ``i`` is the rows
+    ``[i*B/nm, (i+1)*B/nm)`` of every batch entry, and the loss and the fp32
+    gradients are the micro-batches' summed in order, each divided by nm.
+    ``params`` are left as they are (the gradients are returned)."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = tree_leaves(live)
+
+    def grads_of(mb):
+        loss = compute_loss(live, cfg, mb, window)
+        return loss.detach(), torch.autograd.grad(loss, leaves, materialize_grads=True)
+
+    nm = num_microbatches
+    if nm <= 1:
+        loss, grads = grads_of(batch)
+    else:
+        rows = batch["tokens"].shape[0]
+        if rows % nm:
+            raise ValueError(f"batch of {rows} rows does not split into {nm} micro-batches")
+        m = rows // nm
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        grads = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
+        for i in range(nm):
+            l_i, g_i = grads_of({k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+            for acc, g in zip(grads, g_i):
+                acc.add_(g.float() / nm)
+            loss = loss + l_i / nm
+            del g_i                  # before the next micro-batch's backward
+    by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+    return loss, tree_map(lambda t: by_leaf[id(t)], live)
+
+
+def train_step(params, opt_state, batch, cfg: ArchConfig, *,
+               lr: float = 3e-4, num_microbatches: int = 1,
+               window: Optional[int] = None):
+    """One optimizer step with optional gradient accumulation:
+    (new_params, new_opt_state, loss)."""
+    loss, grads = loss_and_grads(params, cfg, batch, num_microbatches=num_microbatches,
+                                 window=window)
+    new_params, new_opt = adamw_update(grads, opt_state, params, lr, grad_clip=1.0)
+    return new_params, new_opt, loss
 
 
 # -------------------------------------------------------------- serve step

@@ -47,6 +47,16 @@ ALL_RULES = ("overlap-order", "predicted-bytes", "replica-groups",
 STRUCTURAL = ("overlap-order", "wire-dtype", "replica-groups")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the test runner runs several workers side by
+    side, and PyTorch's CPU thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def deterministic():
     prev = torch.are_deterministic_algorithms_enabled()
@@ -511,8 +521,29 @@ def test_multiproc_session_has_no_lowered_step():
         sess.close()
 
 
-def test_matrix_on_cpu():
-    recs = tmatrix.run_matrix(SPECS, device="cpu", verbose=False)
+@pytest.fixture(scope="module")
+def matrix_cli():
+    """``python -m repro_torch.run.matrix specs --device cpu``, run once for
+    the module: (exit code, standard output, the records ``run_matrix``
+    returned inside it)."""
+    import contextlib
+    import io
+
+    orig, recs, out = tmatrix.run_matrix, [], io.StringIO()
+
+    def run_matrix(*args, **kwargs):
+        recs.extend(orig(*args, **kwargs))
+        return recs
+
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(tmatrix, "run_matrix", run_matrix)
+        with pytest.raises(SystemExit) as e:
+            tmatrix.main([str(SPECS), "--device", "cpu"])
+    return e.value.code, out.getvalue(), recs
+
+
+def test_matrix_on_cpu(matrix_cli):
+    _, _, recs = matrix_cli
     assert [r["status"] for r in recs] == ["ok"] * 8, [r.get("error") for r in recs]
     by = {r["spec"]: r for r in recs}
     assert {n for n, r in by.items() if r.get("lowered_as") == "vmap"} == \
@@ -522,7 +553,7 @@ def test_matrix_on_cpu():
     assert all(r["lowered_ops"] > 0 for r in recs if "lowered_ops" in r)
 
 
-def test_audit_and_matrix_clis_exit_zero_on_cpu(tmp_path, capsys):
+def test_audit_and_matrix_clis_exit_zero_on_cpu(tmp_path, matrix_cli):
     out = tmp_path / "audit.json"
     with pytest.raises(SystemExit) as e:
         taudit.main(["--spec", str(SPECS), "--device", "cpu", "--out", str(out),
@@ -531,10 +562,9 @@ def test_audit_and_matrix_clis_exit_zero_on_cpu(tmp_path, capsys):
     report = json.loads(out.read_text())
     assert len(report["specs"]) == 8 and report["summary"]["findings"] == 0
     assert report["device"] == "cpu"
-    with pytest.raises(SystemExit) as e:
-        tmatrix.main([str(SPECS), "--device", "cpu"])
-    assert e.value.code == 0
-    assert "8 ok / 0 error" in capsys.readouterr().out
+    code, out, _ = matrix_cli
+    assert code == 0
+    assert "8 ok / 0 error" in out
 
 
 def test_core_layer_imports_no_layer_above_it():

@@ -555,3 +555,64 @@ def test_lm_serving_on_card_matches_cpu(cuda, name):
     a, b = generate(lm, toks, 6, frames), generate(lm, toks, 6, frames)
     assert torch.isfinite(a.logits).all()
     assert torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)
+
+
+# -- LM training --------------------------------------------------------------
+
+LM_TRAIN_FAMILIES = {"dense": "tinyllama-1.1b", "vlm": "qwen2-vl-2b",
+                     "moe": "granite-moe-1b-a400m", "mla": "deepseek-v2-lite-16b",
+                     "hybrid": "zamba2-2.7b", "ssm": "xlstm-350m", "audio": "whisper-small"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", list(LM_TRAIN_FAMILIES))
+def test_lm_training_on_card_matches_cpu(cuda, family, monkeypatch):
+    """Smoke configs, one train_step at num_microbatches=2 (its halves,
+    loss_and_grads and adamw_update) on the card and on the CPU from the
+    same parameters and batch. fp32: the loss within 1e-5 relative, every
+    gradient, mu and nu leaf within 1e-5 x its tree's max (cuBLAS sums in
+    another order than the CPU's BLAS). bf16: the loss within
+    serve_llm.bf16_bar. Every gradient finite; two train_steps on the card
+    bitwise equal."""
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.launch.serve_llm import bf16_bar, resolve_device
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import common, init_params, loss_and_grads, train_step
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    resolve_device(cuda)                      # TF32 off, as on the launcher's path
+    cfg = get_smoke_arch(LM_TRAIN_FAMILIES[family])
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    seq = 32 + (cfg.vision_patches if cfg.family == "vlm" else 0)
+    batch = lm_batch(cfg, 4, seq, torch.Generator().manual_seed(1))
+
+    def on(tree, dev):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    def run(dev):
+        p, b = on(params, dev), on(batch, dev)
+        loss, grads = loss_and_grads(p, cfg, b, num_microbatches=2)
+        _, opt = adamw_update(grads, adamw_init(p), p, 3e-4, grad_clip=1.0)
+        trees = on((grads, opt.mu, opt.nu), "cpu")
+        assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(trees[0]))
+        return float(loss), trees
+
+    for dtype in (torch.float32, torch.bfloat16):
+        monkeypatch.setattr(common, "COMPUTE_DTYPE", dtype)
+        (card_loss, card), (host_loss, host) = run(cuda), run(torch.device("cpu"))
+        rel = abs(card_loss - host_loss) / abs(host_loss)
+        if dtype == torch.bfloat16:
+            assert rel <= bf16_bar(cfg)
+            continue
+        assert rel <= 1e-5
+        for got, want in zip(card, host):
+            scale = max(float(w.abs().max()) for w in tree_leaves(want))
+            assert max(float((g - w).abs().max()) for g, w in
+                       zip(tree_leaves(got), tree_leaves(want))) <= 1e-5 * scale
+    p, b = on(params, cuda), on(batch, cuda)
+    (pa, oa, la), (pb, ob, lb) = (train_step(p, adamw_init(p), b, cfg, num_microbatches=2)
+                                  for _ in range(2))
+    assert torch.equal(la, lb)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves((pa, oa.mu, oa.nu)),
+                                                 tree_leaves((pb, ob.mu, ob.nu))))

@@ -42,7 +42,8 @@ SRC = ROOT / "src"
 VERBATIM = ["utils/registry.py", "graph/structure.py", "graph/generators.py",
             "graph/partition.py", "graph/mvc.py", "graph/remote.py",
             "run/sources.py", "serve/spec.py", "serve/egonet.py", "serve/cache.py",
-            "configs/graphsage_paper.py", "launch/shm_store.py", "core/perf_model.py"]
+            "configs/graphsage_paper.py", "launch/shm_store.py", "core/perf_model.py",
+            "data/pipeline.py", "data/__init__.py"]
 
 
 def _run_json(graph=None, partition=None):
@@ -90,6 +91,27 @@ def test_copies_are_verbatim(rel):
     orig = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
     assert port == orig.replace("repro.", "repro_torch.")
+
+
+def test_token_pipeline_equal():
+    from repro.data import synthetic_token_batches as j_batches
+    from repro_torch.data import synthetic_token_batches as t_batches
+
+    for vocab, b, s in ((512, 3, 70), (32000, 2, 4096)):
+        for bj, bt in zip(j_batches(vocab, b, s, 3, seed=5), t_batches(vocab, b, s, 3, seed=5)):
+            assert bj.keys() == bt.keys() == {"tokens"}
+            assert np.array_equal(bj["tokens"], bt["tokens"])
+            assert bj["tokens"].dtype == bt["tokens"].dtype == np.int32
+
+
+def test_gcn_dataset_equal():
+    from repro.data import make_gcn_dataset as j_make
+    from repro_torch.data import make_gcn_dataset as t_make
+
+    dj, dt = j_make("tiny", seed=2), t_make("tiny", seed=2)
+    assert (dj.name, dj.num_classes) == (dt.name, dt.num_classes)
+    _assert_graph_equal(dj.graph, dt.graph)
+    assert np.array_equal(dj.features, dt.features) and dj.features.dtype == dt.features.dtype
 
 
 @pytest.mark.parametrize("graph", [
@@ -492,7 +514,7 @@ def test_port_serve_loads_without_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.run, repro_torch.parity, "
             "repro_torch.launch.multiproc, repro_torch.launch.chaos, "
-            "repro_torch.core.halo, repro_torch.core.perf_model; "
+            "repro_torch.core.halo, repro_torch.core.perf_model, repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

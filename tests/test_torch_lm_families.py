@@ -317,11 +317,7 @@ def test_generate_repeats_and_cast_copy_is_exact(name):
     assert torch.equal(serve_llm.teacher_forced(lm.params, cfg, forced, frames), a.logits)
 
 
-def test_training_still_raises_and_frames_are_required():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8\\(c\\)"):
-        TM.train_step()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8\\(c\\)"):
-        TM.compute_loss()
+def test_frames_are_required():
     cfg = TCFG.get_smoke_arch("whisper-small")
     params = TM.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(ValueError, match="frames"):

@@ -43,6 +43,16 @@ ROW_KEYS = ("spec_hash", "overrides", "partition_stats", "stage_rows",
             "predicted_wire_bytes", "overlap", "modelled", "modelled_epoch_s")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the test runner runs several workers side by
+    side, and PyTorch's CPU thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def deterministic():
     prev = torch.are_deterministic_algorithms_enabled()
