@@ -10,6 +10,7 @@
     python3 chip_smoke.py --tune          # phases 1, 2 and 14 only
     python3 chip_smoke.py --lm            # phases 1, 2 and 15 only
     python3 chip_smoke.py --lm-train      # phases 1, 2 and 16 only
+    python3 chip_smoke.py --dryrun        # phases 1, 2 and 17 only
     python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
                                           # epochs, longer, on the checkout
                                           # at TREE (for parent/change A/B)
@@ -186,7 +187,25 @@ the result line is printed:
              loss within 1e-5 relative and every gradient, mu and nu leaf
              within 1e-5 x its tree's max; at bf16 the loss within
              serve_llm.bf16_bar; every gradient finite in both.
-17. the kernels line (JSON, with each kernel's launches on every path), the
+17. dry-run — the port's GCN dry-run entry point (launch/dryrun.py --gcn,
+             run through its main on the card): the JAX package's
+             check-overlap line (rmat-10, 8 workers, 2 groups, Int2,
+             --overlap --assert-overlap; the base spec is shard_map, so
+             the workers run stacked, lowered_as vmap), where both overlap
+             flags must read true and the overlap-order rule find nothing;
+             the same with --no-overlap, where both must read false; then
+             the JAX package's default, 256 workers at rmat-13 (flat, Int2).
+             Each record must have status ok and its recorded all-to-all
+             bytes equal to predicted_hlo_wire_bytes; its collectives,
+             cost, peak device memory (the session and its recorded step,
+             above what was held before) and seconds are printed. The
+             launch counts are reset before the first run and read after
+             the last: every kernel must have launched. Then the check
+             line on the CPU, whose cost and collectives must equal the
+             card's, and every kernel against its plain version on the
+             three runs' sessions (phase 14's check, F in (100, 256, 47,
+             128)).
+18. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -1563,7 +1582,7 @@ def _quantized(spec) -> bool:
     return any(s.bits for s in sched.stages)
 
 
-def check_session_kernels(session, dev, label: str) -> dict:
+def check_session_kernels(session, dev, label: str, fs=(100, 256, 47)) -> dict:
     """Every kernel of one stacked session's path against its plain version,
     at the layouts and wire rows that session built (a tuned partition such
     as ``refine=bucket-max`` moves hub rows, so its buckets differ from
@@ -1571,8 +1590,8 @@ def check_session_kernels(session, dev, label: str) -> dict:
     over the reverse layout, on the local graph and on every stage's
     pre-aggregation and receive scatter; two launches bitwise on all of
     them; quant_pack and dequant_unpack at each quantized stage's wire rows
-    (after the psum_scatter of a grouped stage), bitwise. F in (100, 256,
-    47), rtol = atol = TOL; fails on any mismatch."""
+    (after the psum_scatter of a grouped stage), bitwise. F in ``fs``,
+    rtol = atol = TOL; fails on any mismatch."""
     import numpy as np
     import torch
 
@@ -1583,7 +1602,7 @@ def check_session_kernels(session, dev, label: str) -> dict:
     reverse = {name[:-2]: lay for name, lay, _, _, bwd in layouts if bwd}
     worst = {"seg_aggregate": 0.0, "seg_aggregate_backward": 0.0,
              "quant_pack": 0.0, "dequant_unpack": 0.0}
-    for f in (100, 256, 47):
+    for f in fs:
         for name, lay, n_in, n_out, bwd in layouts:
             if bwd:
                 continue
@@ -1607,7 +1626,7 @@ def check_session_kernels(session, dev, label: str) -> dict:
         topo = sched.topo(stage)
         if topo.kind != "a2a":
             rows //= topo.shard_size
-        for f in (100, 256, 47):
+        for f in fs:
             x = torch.from_numpy(rng.normal(size=(p * rows, f)).astype(np.float32)).to(dev)
             u = torch.from_numpy(rng.uniform(size=(p * rows, f)).astype(np.float32)).to(dev)
             for k, e in zip(("quant_pack", "dequant_unpack"),
@@ -1616,7 +1635,7 @@ def check_session_kernels(session, dev, label: str) -> dict:
         shapes.append((stage.level, p * rows, stage.bits))
     print(f"[tune] kernels of {label}: seg_aggregate forward and backward on its "
           f"{len(layouts)} layouts ({', '.join(n for n, *_ in layouts)}) at F in "
-          f"(100, 256, 47), two launches bitwise, max abs err "
+          f"{tuple(fs)}, two launches bitwise, max abs err "
           f"{worst['seg_aggregate']:.3e} forward, {worst['seg_aggregate_backward']:.3e} "
           f"backward (rtol=atol={TOL}); quant_pack and dequant_unpack bitwise at "
           f"(stage, rows, bits) {shapes or 'none (no quantized stage)'}", flush=True)
@@ -2305,6 +2324,124 @@ def lm_train_phase(dev, smi: str) -> dict:
     return {"launches": launches, "trained": trained, "parity": parity}
 
 
+# -- phase 17: the GCN dry-run ----------------------------------------------------
+
+# The JAX package's `make check-overlap` line (Makefile), then its default:
+# every worker of the 16x16 production mesh, stacked on the card, at rmat-13.
+DRYRUN_CHECK = ["--groups", "2", "--scale", "10", "--chips", "8", "--overlap",
+                "--assert-overlap"]
+DRYRUN_FULL = ["--chips", "256"]
+
+
+def run_dryrun(args, dev, out: Path) -> dict:
+    """One ``python -m repro_torch.launch.dryrun --gcn ARGS`` on the card,
+    through its ``main``; its record, read back from ``out``. Fails unless
+    the command exits 0 with status ok."""
+    from repro_torch.launch import dryrun
+
+    argv = ["--gcn", *args, "--device", str(dev), "--out", str(out)]
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    secs = time.perf_counter() - t0
+    recs = sorted(out.glob("*.json"))
+    if code != 0 or len(recs) != 1:
+        fail(f"dryrun {' '.join(argv)}: exit {code}, {len(recs)} records")
+    rec = json.loads(recs[0].read_text())
+    if rec["status"] != "ok":
+        fail(f"dryrun {' '.join(argv)}: {rec.get('error')}")
+    if dev.type == "cuda" and not (rec["memory"] or 0) > 0:
+        fail(f"dryrun {' '.join(argv)}: no peak device memory recorded ({rec['memory']})")
+    a2a = rec["collectives"]["all-to-all"]["result_bytes"]
+    if a2a != rec["predicted_hlo_wire_bytes"]["total"]:
+        fail(f"dryrun {' '.join(argv)}: recorded all-to-all bytes {a2a} per worker, "
+             f"predicted {rec['predicted_hlo_wire_bytes']}")
+    rec["seconds"] = secs
+    order = rec["collective_order"]
+    print(f"[dryrun] {' '.join(args)}: {rec['shape']} on {rec['mesh']} "
+          f"({rec['chips']} workers stacked, lowered_as {rec.get('lowered_as')}) in "
+          f"{secs:.2f} s (recorded step {rec['lower_s']} s); peak "
+          f"{(rec['memory'] or 0) / 1e9:.3f} GB above what was held before it; "
+          f"all-to-all bytes {a2a:.0f} per worker = predicted; wire_before_compute "
+          f"{order['wire_before_compute']} inter_wire_before_compute "
+          f"{order['inter_wire_before_compute']}; {order['num_events']} events", flush=True)
+    print(f"[dryrun]   collectives {json.dumps(rec['collectives'])}", flush=True)
+    print(f"[dryrun]   cost {json.dumps(rec['cost'])}; memory {rec['memory']}; "
+          f"predicted wire bytes {json.dumps(rec['predicted_wire_bytes'])}; "
+          f"audit findings {rec.get('audit_findings')}", flush=True)
+    return rec
+
+
+def dryrun_phase(dev, full=DRYRUN_FULL) -> dict:
+    """Phase 17 on the card: the port's dry-run entry point on the check-
+    overlap line, with --overlap and --no-overlap, then ``full`` (the JAX
+    package's default: 256 workers at rmat-13). The kernel launch counts
+    are reset just before the first run and read just after the last."""
+    import shutil
+
+    import torch
+
+    from repro_torch.analysis.rules import STACKED_OVERRIDES
+    from repro_torch.run import RunSpec, build_session
+
+    t0 = time.perf_counter()
+    base = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(base, ignore_errors=True)
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    check = run_dryrun(DRYRUN_CHECK, dev, base / "check_overlap")
+    flags = ("wire_before_compute", "inter_wire_before_compute")
+    if not all(check["collective_order"][k] for k in flags):
+        fail(f"dryrun with --overlap: {[check['collective_order'][k] for k in flags]}")
+    no_overlap = [a for a in DRYRUN_CHECK if a not in ("--overlap", "--assert-overlap")]
+    seq = run_dryrun(no_overlap + ["--no-overlap"], dev, base / "no_overlap")
+    if any(seq["collective_order"][k] for k in flags):
+        fail(f"dryrun with --no-overlap: {[seq['collective_order'][k] for k in flags]}")
+    default = run_dryrun(full, dev, base / "default")
+    launched = counts()
+    print(f"[dryrun] kernel launches on the dry-run path (3 runs): "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()), flush=True)
+    for k, v in launched.items():
+        if v <= 0:
+            fail(f"the dry-run path launched no {k} kernel")
+
+    # After the counts are read: the check line on the CPU, whose cost and
+    # collectives must be the card's (kernel calls count as one op on both
+    # devices), then every kernel against its plain version at the layouts
+    # and wire rows of each run's session, at the model's widths (128 in,
+    # 256 hidden) besides phase 14's.
+    host = run_dryrun(DRYRUN_CHECK, torch.device("cpu"), base / "check_overlap_cpu")
+    for key in ("cost", "collectives"):
+        if host[key] != check[key]:
+            fail(f"dryrun check line: {key} on the card {check[key]}, on the CPU {host[key]}")
+    print(f"[dryrun] check line on the CPU in {host['seconds']:.2f} s: cost and "
+          f"collectives equal the card's", flush=True)
+    t1 = time.perf_counter()
+    worst = dict.fromkeys(("seg_aggregate", "seg_aggregate_backward", "quant_pack",
+                           "dequant_unpack"), 0.0)
+    for rec in (check, seq, default):
+        spec = RunSpec.from_dict(rec["spec"]).with_overrides(list(STACKED_OVERRIDES))
+        sess = build_session(spec, device=dev)
+        try:
+            errs = check_session_kernels(sess, dev, f"dryrun {rec['shape']} {rec['mesh']}",
+                                         fs=(100, 256, 47, 128))
+        finally:
+            sess.close()
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+    print(f"[dryrun] kernels against their plain versions on the 3 runs' sessions in "
+          f"{time.perf_counter() - t1:.2f} s: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] phase 17 in {secs:.1f} s; device memory held by earlier phases "
+          f"{held / 1e9:.3f} GB", flush=True)
+    return {"launches": launched, "check": check, "no_overlap": seq, "default": default,
+            "max_abs_err": worst, "seconds": secs}
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -2443,6 +2580,12 @@ def main() -> None:
         lm_train_phase(dev, smi)
         print(smi)
         return
+    if sys.argv[1:2] == ["--dryrun"]:
+        from repro_torch.kernels import build
+        build.build_all()
+        dryrun_phase(dev)
+        print(smi)
+        return
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -2504,6 +2647,7 @@ def main() -> None:
     tuned = audit_tune_phase(dev)
     lm_phase(dev, smi)
     lm_trained = lm_train_phase(dev, smi)
+    dry = dryrun_phase(dev)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -2526,11 +2670,12 @@ def main() -> None:
     for k in kernels:
         k["multiproc_max_abs_err"] = multi["checked"]["max_abs_err"][k["name"]]
         k["tune_max_abs_err"] = tuned["max_abs_err"][k["name"]]
+        k["dryrun_max_abs_err"] = dry["max_abs_err"][k["name"]]
     paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
              "multiproc": multi["launches"], "tune": tuned["launches"],
-             "lm_train": lm_trained["launches"]}
+             "lm_train": lm_trained["launches"], "dryrun": dry["launches"]}
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
     for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):

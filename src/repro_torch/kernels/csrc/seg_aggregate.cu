@@ -17,8 +17,8 @@
 // up to kMaxBuckets buckets by value (pointers, K, padded and real rows).
 //
 // What bounds it on this card: bytes, not arithmetic. Per output value it
-// does one fused multiply-add per gathered float, far below the ~20
-// flop/byte at which fp32 arithmetic would become the limit on an H100
+// does about three flops per gathered float (a compensated sum, below),
+// under one flop per gathered byte, far below the ~20 flop/byte at which fp32 arithmetic would become the limit on an H100
 // (67 TFLOP/s over 3.35 TB/s). The HBM bytes are small (the index and
 // weight arrays, each source row once, the output once); what a gather
 // moves is much more: every slot re-reads a whole source row (each
@@ -32,7 +32,7 @@
 //     when F % 4 == 0 and the rows are 16-byte aligned, scalar loads
 //     otherwise); the K loop loads 4 slots' idx and w (one 16-byte load
 //     each when K % 4 == 0) and issues their 4 gathers before the
-//     multiply-adds.
+//     sums.
 //   * Slots with w == 0 (the layouts pad rows to their bucket's K with
 //     (idx 0, w 0) slots: 30% of the local graph's) are not gathered.
 //
@@ -42,18 +42,28 @@
 // on the H100, PERF.md.)
 //
 // The weight of a slot is the same for all threads of its row, so the
-// w == 0 branch does not diverge within a row. For finite x skipping the
-// slot changes no value: fmaf(0, x, acc) == acc (acc is never -0: it
-// starts at +0 and a sum that cancels exactly rounds to +0). An infinite
-// or NaN x in a padded slot gives NaN in the plain version (0 * inf) and
-// not in the kernel.
+// w == 0 branch does not diverge within a row (skipping the slot changes
+// no value, below). An infinite or NaN x in a padded slot gives NaN in
+// the plain version (0 * inf) and not in the kernel.
+//
+// Each output value is a compensated sum: the slots are taken in groups
+// of 4 (0-3, 4-7, ...; the K % 4 last ones alone), each group's products
+// summed in a fixed tree, and each group's sum added into a running sum
+// whose rounding errors a second term collects (TwoSum); the value stored
+// is the two terms' sum. The running sum's error, which grows with K in a
+// plain chain, is so carried, and a long row that cancels keeps its
+// digits: a plain fmaf chain over the 512-slot receive rows of 256
+// stacked workers (the dry-run's R-MAT hubs) left rtol = atol = 1e-5 of
+// the plain version where a result cancels (PERF.md). It costs about
+// three flops per gathered float, still far below the bytes' bound.
 //
 // Order of the sums, and so the bits of the result, do not depend on the
-// grid or a bucket's row count: every output value starts at +0.0f and
-// takes one __fmaf_rn per slot with w != 0, in slot order 0..K-1, with no
-// atomics; every destination row lies in exactly one bucket and is stored
-// once. So two launches agree bit for bit, and a served row equals the
-// same row of the full-batch forward bit for bit.
+// grid or a bucket's row count: the groups are taken in slot order, with
+// no atomics; every destination row lies in exactly one bucket and is
+// stored once. So two launches agree bit for bit, and a served row equals
+// the same row of the full-batch forward bit for bit. A slot with w == 0
+// is not gathered (its product is +0), and a group or a last slot with
+// none of w != 0 is not added.
 //
 // Padding rows (a stack pads every worker's bucket to the largest worker's
 // count; a shape class pads further) point at row 0 with zero weights; the
@@ -107,11 +117,50 @@ __device__ __forceinline__ int real_rows(const Bucket& b, int p) {
   return b.counts != nullptr ? __ldg(b.counts + p) : b.n;
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
-  acc.x = __fmaf_rn(w, v.x, acc.x);
-  acc.y = __fmaf_rn(w, v.y, acc.y);
-  acc.z = __fmaf_rn(w, v.z, acc.z);
-  acc.w = __fmaf_rn(w, v.w, acc.w);
+// s + c += g, compensated (Knuth's TwoSum: the add's exact rounding error
+// goes into c). The intrinsics keep nvcc from contracting the error terms
+// into fmas.
+__device__ __forceinline__ void two_sum(float& s, float& c, float g) {
+  const float t = __fadd_rn(s, g);
+  const float z = __fsub_rn(t, s);
+  c = __fadd_rn(c, __fadd_rn(__fsub_rn(s, __fsub_rn(t, z)), __fsub_rn(g, z)));
+  s = t;
+}
+
+// The running sum of 4 features: sum s and error term c.
+struct Acc4 {
+  float4 s, c;
+};
+
+__device__ __forceinline__ void add4(Acc4& a, const float4& g) {
+  two_sum(a.s.x, a.c.x, g.x);
+  two_sum(a.s.y, a.c.y, g.y);
+  two_sum(a.s.z, a.c.z, g.z);
+  two_sum(a.s.w, a.c.w, g.w);
+}
+
+// (w0 v0 + w1 v1) + (w2 v2 + w3 v3), one feature: a group's partial sum.
+__device__ __forceinline__ float group(const float (&w)[4], float v0, float v1, float v2,
+                                       float v3) {
+  return __fadd_rn(__fmaf_rn(w[1], v1, __fmul_rn(w[0], v0)),
+                   __fmaf_rn(w[3], v3, __fmul_rn(w[2], v2)));
+}
+
+__device__ __forceinline__ float4 group4(const float (&w)[4], const float4 (&v)[4]) {
+  return make_float4(group(w, v[0].x, v[1].x, v[2].x, v[3].x),
+                     group(w, v[0].y, v[1].y, v[2].y, v[3].y),
+                     group(w, v[0].z, v[1].z, v[2].z, v[3].z),
+                     group(w, v[0].w, v[1].w, v[2].w, v[3].w));
+}
+
+__device__ __forceinline__ float4 scale4(float w, const float4& v) {
+  return make_float4(__fmul_rn(w, v.x), __fmul_rn(w, v.y), __fmul_rn(w, v.z),
+                     __fmul_rn(w, v.w));
+}
+
+__device__ __forceinline__ float4 total4(const Acc4& a) {
+  return make_float4(__fadd_rn(a.s.x, a.c.x), __fadd_rn(a.s.y, a.c.y),
+                     __fadd_rn(a.s.z, a.c.z), __fadd_rn(a.s.w, a.c.w));
 }
 
 // 4 features at p (valid: how many of them lie inside the row, >= 1).
@@ -191,34 +240,26 @@ seg_aggregate_gather(const float* __restrict__ x, float* __restrict__ out, const
   const float* w_r = b.w + slot * b.k;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool vslots = vec_slots(b);
-  float4 acc = zero;
+  Acc4 acc{zero, zero};
   int j = 0;
   for (; j + 4 <= b.k; j += 4) {
     int s[4];
     float wt[4];
     load_slots(idx_r, w_r, j, vslots, s, wt);
-    if constexpr (kVec) {  // the 4 gathers in flight before the multiply-adds
-      float4 v[4];
+    float4 v[4];  // the 4 gathers in flight before the sums
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        v[u] = wt[u] != 0.f ? load4<true>(xp + static_cast<int64_t>(s[u]) * f, valid) : zero;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (wt[u] != 0.f) fma4(acc, wt[u], v[u]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (wt[u] != 0.f)
-          fma4(acc, wt[u], load4<false>(xp + static_cast<int64_t>(s[u]) * f, valid));
-    }
+    for (int u = 0; u < 4; ++u)
+      v[u] = wt[u] != 0.f ? load4<kVec>(xp + static_cast<int64_t>(s[u]) * f, valid) : zero;
+    if (wt[0] != 0.f || wt[1] != 0.f || wt[2] != 0.f || wt[3] != 0.f)
+      add4(acc, group4(wt, v));
   }
   for (; j < b.k; ++j) {
     const float wj = __ldg(w_r + j);
     if (wj != 0.f)
-      fma4(acc, wj, load4<kVec>(xp + static_cast<int64_t>(__ldg(idx_r + j)) * f, valid));
+      add4(acc, scale4(wj, load4<kVec>(xp + static_cast<int64_t>(__ldg(idx_r + j)) * f, valid)));
   }
   const int64_t dst = b.rows != nullptr ? __ldg(b.rows + slot) : r;
-  store4<kVec>(out + p * t.out_stride + dst * f + f4, acc, valid);
+  store4<kVec>(out + p * t.out_stride + dst * f + f4, total4(acc), valid);
 }
 
 }  // namespace

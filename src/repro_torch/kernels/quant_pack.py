@@ -14,7 +14,9 @@ packs into ``ceil(F / (32/bits))`` words whose unused fields are zero, and
 
 Dispatch is by device: a CUDA tensor goes to the kernel (or the wrapper
 raises), a CPU tensor to the plain version. ``pack_launches`` and
-``unpack_launches`` count kernel launches.
+``unpack_launches`` count kernel launches. Both wrappers are
+``traffic.kernel_io``: a byte count sees each call as one op on either
+device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.traffic import kernel_io
 from repro_torch.quant.stochastic import ROW_GROUP, words_per_row
 
 pack_launches = 0     # quant_pack kernel launches since the last reset
@@ -56,6 +59,7 @@ def _require(t: torch.Tensor, name: str, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@kernel_io
 def quant_pack(x: torch.Tensor, noise: torch.Tensor, bits: int = 2
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(packed [R, ceil(F*bits/32)] int32, zero [R/4], scale [R/4]) of
@@ -91,6 +95,7 @@ def quant_pack(x: torch.Tensor, noise: torch.Tensor, bits: int = 2
     return packed, zero, scale
 
 
+@kernel_io
 def dequant_unpack(packed: torch.Tensor, zero: torch.Tensor, scale: torch.Tensor,
                    bits: int, feat: int) -> torch.Tensor:
     """``q * scale + zero`` per 4-row group, [R, feat] fp32: the kernel on

@@ -32,7 +32,9 @@ raises), a CPU tensor to the plain version (``ref.seg_aggregate_ref`` and
 ``index_add_``, the counterpart of ``.at[].add``). Nothing falls back.
 ``launches`` and ``backward_launches`` count kernel launches in the forward
 and in the backward (one per aggregation call with real rows), so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel. Both wrappers are
+``traffic.kernel_io``: a byte count sees each call as one op on either
+device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.traffic import kernel_io
 
 launches = 0            # forward kernel launches since the last reset
 backward_launches = 0   # backward (reverse-layout) launches since the last reset
@@ -270,6 +273,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, buckets: BucketTable,
         raise RuntimeError(f"seg_aggregate kernel launch failed: CUDA error {err}")
 
 
+@kernel_io
 def seg_aggregate(x: torch.Tensor, ell_idx: torch.Tensor,
                   ell_w: torch.Tensor) -> torch.Tensor:
     """out[r] = sum_k ell_w[r,k] * x[ell_idx[r,k]]: the kernel on CUDA
@@ -327,6 +331,7 @@ def bucketed_forward_ref(x: torch.Tensor, ell: DeviceBucketedEll,
     return out.reshape(p, out_rows, f)
 
 
+@kernel_io
 def _bucketed_forward(x: torch.Tensor, ell: DeviceBucketedEll, out_rows: int,
                       backward: bool = False) -> torch.Tensor:
     """CUDA tensors: one kernel launch over every bucket with real rows (all

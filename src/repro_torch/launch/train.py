@@ -186,6 +186,12 @@ def main(argv=None) -> int:
              if multiproc else f"stacked on {session.trainer.device}"))
     print(f"partition comm volumes: vanilla={s.vanilla} pre={s.pre} "
           f"post={s.post} hybrid={s.hybrid} (selected={s.selected})")
+    p = session.partition_stats()
+    print(f"partition health: cut_fraction={p['cut_fraction']:.4f} "
+          f"load_imbalance={p['load_imbalance']:.3f} "
+          f"agg_slot_imbalance={p['agg_slot_imbalance']:.3f} "
+          f"agg_stacked_slots={p['agg_stacked_slots']} "
+          f"(refine={spec.partition.refine})")
     print(f"exchange schedule: {session.schedule.describe()}")
     t0 = time.time()
     try:

@@ -1,0 +1,26 @@
+"""Sharding rules for the production meshes (counterpart of
+``repro.sharding``).
+
+``specs`` holds the rules over a mesh's shape (``launch.mesh.Mesh``) and
+meta-device tensors. The JAX package's ``compat`` module has no
+counterpart: it shims drift in JAX's ``axis_size``, ``AbstractMesh`` and
+mesh-context API, none of which the port uses, so ``abstract_mesh``,
+``axis_size`` and ``mesh_context`` are not exported here.
+``quantized_collectives`` is not ported yet (ROADMAP A8(d4)).
+"""
+
+from repro_torch.sharding.specs import (
+    batch_spec,
+    cache_specs,
+    data_axes,
+    param_specs,
+    spec_for_array,
+)
+
+__all__ = [
+    "param_specs",
+    "batch_spec",
+    "cache_specs",
+    "data_axes",
+    "spec_for_array",
+]

@@ -616,3 +616,53 @@ def test_lm_training_on_card_matches_cpu(cuda, family, monkeypatch):
     assert torch.equal(la, lb)
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves((pa, oa.mu, oa.nu)),
                                                  tree_leaves((pb, ob.mu, ob.nu))))
+
+
+def _gcn_dryrun_on_card(cuda):
+    """The check-overlap dry-run (rmat-10, 8 workers, 2 groups, Int2,
+    --overlap --assert-overlap) on the card, and the kernel launches it
+    made."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.dryrun import gcn_base_spec, run_gcn_dryrun
+
+    spec = gcn_base_spec(8, scale=10).with_overrides(
+        ["partition.groups=2", "schedule.overlap=true"])
+    before = launch_counts()
+    rec = run_gcn_dryrun(spec, save=False, assert_overlap=True, device=cuda)
+    after = launch_counts()
+    assert rec["status"] == "ok", rec.get("traceback")
+    return rec, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.gpu
+def test_gcn_dryrun_on_card_records_its_peak(cuda):
+    rec, _ = _gcn_dryrun_on_card(cuda)
+    assert isinstance(rec["memory"], int) and rec["memory"] > 0
+    assert rec["device"] == torch.cuda.get_device_name(cuda)
+    order = rec["collective_order"]
+    assert order["wire_before_compute"] and order["inter_wire_before_compute"]
+    assert rec["audit_findings"] == []
+    assert (rec["collectives"]["all-to-all"]["result_bytes"]
+            == rec["predicted_hlo_wire_bytes"]["total"])
+
+
+@pytest.mark.gpu
+def test_gcn_dryrun_cost_is_the_same_on_card_and_cpu(cuda):
+    """The kernels' reads and writes count as one op a call on both
+    devices (kernels.traffic), so the step's cost is the same figure."""
+    from repro_torch.launch.dryrun import gcn_base_spec, run_gcn_dryrun
+
+    card, _ = _gcn_dryrun_on_card(cuda)
+    spec = gcn_base_spec(8, scale=10).with_overrides(
+        ["partition.groups=2", "schedule.overlap=true"])
+    host = run_gcn_dryrun(spec, save=False, assert_overlap=True, device="cpu")
+    assert host["status"] == "ok", host.get("traceback")
+    assert card["cost"] == host["cost"]
+    assert card["collectives"] == host["collectives"]
+
+
+@pytest.mark.gpu
+def test_gcn_dryrun_on_card_launches_the_kernels(cuda):
+    _, launched = _gcn_dryrun_on_card(cuda)
+    for k in ("seg_aggregate", "seg_aggregate_backward", "quant_pack", "dequant_unpack"):
+        assert launched[k] > 0, (k, launched)

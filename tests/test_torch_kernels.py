@@ -150,8 +150,8 @@ def test_bucketed_aggregate_refuses_grad_without_reverse_layout():
 # The CUDA kernel cannot run here; what decides which rows it computes is
 # the tables built in Python. _gather_rows decodes them as
 # csrc/seg_aggregate.cu's seg_aggregate_gather does, line for line: the
-# bucket scan (:174-177), row_tiles, p and r (:179-182) and the padding
-# test (:186). A drift of the .cu from it shows on the card, where
+# bucket scan (:223-226), row_tiles, p and r (:228-231) and the padding
+# test (:235). A drift of the .cu from it shows on the card, where
 # tests/test_torch_gpu.py runs the kernel on the same layouts against the
 # plain version.
 

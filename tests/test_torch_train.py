@@ -19,6 +19,7 @@ seconds.
 """
 
 import io
+import re
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -224,6 +225,15 @@ def test_launch_train_cli_on_cpu():
     text = out.getvalue()
     assert rc == 0
     assert "epoch    1 loss" in text and "trained 1 epochs" in text
+    # The partition-health line follows the comm volumes, in the JAX
+    # package's format.
+    health = re.search(
+        r"^partition health: cut_fraction=\d\.\d{4} load_imbalance=\d+\.\d{3} "
+        r"agg_slot_imbalance=\d+\.\d{3} agg_stacked_slots=\d+ \(refine=[\w-]+\)$",
+        text, re.M)
+    assert health is not None, text
+    assert text.index("partition comm volumes") < health.start() < text.index(
+        "exchange schedule")
 
 
 def test_unported_paths_raise(monkeypatch):
