@@ -11,6 +11,7 @@
     python3 chip_smoke.py --lm            # phases 1, 2 and 15 only
     python3 chip_smoke.py --lm-train      # phases 1, 2 and 16 only
     python3 chip_smoke.py --dryrun        # phases 1, 2 and 17 only
+    python3 chip_smoke.py --lm-dryrun     # phases 1, 2 and 18 only
     python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
                                           # epochs, longer, on the checkout
                                           # at TREE (for parent/change A/B)
@@ -205,7 +206,31 @@ the result line is printed:
              card's, and every kernel against its plain version on the
              three runs' sessions (phase 14's check, F in (100, 256, 47,
              128)).
-18. the kernels line (JSON, with each kernel's launches on every path), the
+18. LM dry-run — the port's LM dry-run entry point (launch/dryrun.py
+             --arch/--shape, through its main) on the card for one
+             combination of each input shape and each family (whisper-small
+             x decode_32k, tinyllama-1.1b x train_4k, granite-moe-1b-a400m x
+             prefill_32k, zamba2-2.7b x long_500k, xlstm-350m x decode_32k,
+             qwen2-vl-2b x decode_32k): FakeTensorMode traces, so nothing is
+             allocated and no kernel launches (the counts are reset before
+             and read after: all must read 0). The same records on the CPU
+             device must give the same FLOPs, bytes and argument bytes; per
+             combination the FLOPs, bytes, the three memory figures and the
+             seconds are printed. cost_extrapolate against a full-depth
+             trace of granite-moe-1b-a400m x prefill_32k at 4 layers
+             (FLOPs exactly, bytes within 1%). Then the live-byte tracker behind
+             temp_size_in_bytes on two real steps on the card (whisper-small
+             serve_step at batch 16 over a 4096-token cache; tinyllama-1.1b
+             train_step over one sequence of 4096 tokens), its peak within
+             10% of torch.cuda.max_memory_allocated above what was held;
+             the roofline table (launch/roofline.py, H100 constants) over
+             the card's records; and the quantized collectives
+             (sharding/quantized_collectives.py: psum, all-to-all, tree) at
+             P in (4, 8) and bits in (8, 4): the kernels' words, zeros and
+             scales bitwise equal to the plain path's on the card, every
+             result bitwise equal to the CPU's from the same uniforms, with
+             the launches of quant_pack and dequant_unpack counted.
+19. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -2442,6 +2467,267 @@ def dryrun_phase(dev, full=DRYRUN_FULL) -> dict:
             "max_abs_err": worst, "seconds": secs}
 
 
+# -- phase 18: the LM dry-run, the roofline and the quantized collectives -------
+
+# One combination of each input shape and each family (dense, vlm, moe,
+# hybrid, ssm, audio) through the LM dry-run's entry point.
+LM_DRYRUN = (("whisper-small", "decode_32k"), ("tinyllama-1.1b", "train_4k"),
+             ("granite-moe-1b-a400m", "prefill_32k"), ("zamba2-2.7b", "long_500k"),
+             ("xlstm-350m", "decode_32k"), ("qwen2-vl-2b", "decode_32k"))
+LIVE_BAR = 0.10   # live-byte tracker's peak against the allocator's, relative
+QC_WORKERS, QC_BITS = (4, 8), (8, 4)
+QC_VALUES = 2**21   # a worker's gradient: 8 MB of fp32
+
+
+def run_lm_dryrun(name: str, shape: str, dev, out: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch NAME --shape SHAPE
+    --device DEV --out OUT`` through its ``main``; the record read back.
+    Fails unless it exits 0 with status ok."""
+    from repro_torch.launch import dryrun
+
+    argv = ["--arch", name, "--shape", shape, "--device", str(dev), "--out", str(out)]
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    secs = time.perf_counter() - t0
+    path = out / f"{name}__{shape}__16x16.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    if code != 0 or rec.get("status") != "ok":
+        fail(f"lm dryrun {' '.join(argv)}: exit {code}, {rec.get('error')}")
+    rec["seconds"] = secs
+    return rec
+
+
+def live_bytes_check(label: str, fn, held, dev) -> dict:
+    """``fn()`` once to warm up, then again under ``hlo_stats.LiveBytes``
+    (``held`` left out): its peak against ``torch.cuda.max_memory_allocated``
+    above what was allocated just before, within LIVE_BAR."""
+    import torch
+
+    from repro_torch.launch.hlo_stats import LiveBytes
+
+    fn()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tracker = LiveBytes(held)
+    with tracker:
+        out = fn()
+    torch.cuda.synchronize(dev)
+    real = torch.cuda.max_memory_allocated(dev) - before
+    del out
+    rel = abs(tracker.peak - real) / max(real, 1)
+    print(f"[lm-dryrun] live bytes, {label}: tracker peak {tracker.peak / 1e9:.4f} GB, "
+          f"max_memory_allocated above what was held {real / 1e9:.4f} GB "
+          f"(relative difference {rel:.4f}; bar {LIVE_BAR})", flush=True)
+    if not rel <= LIVE_BAR:
+        fail(f"live-byte tracker on {label}: {tracker.peak} B against {real} B")
+    return {"tracker_bytes": tracker.peak, "allocated_bytes": real, "relative": rel}
+
+
+def live_bytes_phase(dev) -> dict:
+    """The tracker behind a record's temp_size_in_bytes against the caching
+    allocator on real steps: whisper-small serve_step (batch 16, cache 4096)
+    and tinyllama-1.1b train_step over one sequence of 4096 tokens."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_params, serve_step, train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.utils.trees import tree_leaves
+
+    out = {}
+    cfg = get_arch("whisper-small")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    cache = init_cache(cfg, 16, 4096, device=dev)
+    tokens = torch.zeros((16, 1), dtype=torch.int32, device=dev)
+
+    def serve():
+        with torch.no_grad():
+            return serve_step(params, cache, tokens, cfg)
+
+    out["whisper-small serve_step"] = live_bytes_check(
+        "whisper-small serve_step, batch 16, cache 4096", serve,
+        tree_leaves((params, cache, tokens)), dev)
+    del params, cache
+    cfg = get_arch("tinyllama-1.1b")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 4096), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(1))}
+
+    def step():
+        return train_step(params, opt, batch, cfg)
+
+    out["tinyllama-1.1b train_step"] = live_bytes_check(
+        "tinyllama-1.1b train_step, 1 x 4096 tokens", step,
+        tree_leaves((params, opt.mu, opt.nu, batch)), dev)
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def quantized_collectives_phase(dev) -> dict:
+    """The three quantized collectives at P in QC_WORKERS and bits in QC_BITS
+    on the card: the kernels' words, zeros and scales bitwise equal to the
+    plain path's on the card, every result bitwise equal to the CPU's (the
+    plain versions there) from the same uniforms. Launch counts are reset
+    just before and read just after the card's calls."""
+    import torch
+
+    from repro_torch.kernels.ref import quant_pack_ref
+    from repro_torch.sharding import (quantized_all_to_all, quantized_psum,
+                                      quantized_psum_tree)
+    from repro_torch.sharding import quantized_collectives as qc
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(18)
+    cases = []
+    for p in QC_WORKERS:
+        n = QC_VALUES
+        rows = (n + (-n) % (p * 512)) // 128
+        g = torch.randn((p, n), generator=gen)
+        x = torch.randn((p, p * 256, 256), generator=gen)
+        tree = {"w": torch.randn((p, 1000, 300), generator=gen),
+                "b": torch.randn((p, 300), generator=gen)}
+        leaf_rows = [(t[0].numel() + (-t[0].numel()) % (p * 512)) // 128
+                     for t in (tree["b"], tree["w"])]          # sorted keys: b, w
+        for bits in QC_BITS:
+            cases.append(dict(
+                p=p, bits=bits, g=g, x=x, tree=tree,
+                u1=torch.rand((p, rows, 128), generator=gen),
+                u2=torch.rand((p, rows // p, 128), generator=gen),
+                u=torch.rand(x.shape, generator=gen),
+                us=[(torch.rand((p, r, 128), generator=gen),
+                     torch.rand((p, r // p, 128), generator=gen)) for r in leaf_rows]))
+
+    def on(c, d):
+        to = lambda t: t.to(d)
+        return (quantized_psum(to(c["g"]), bits=c["bits"], u1=to(c["u1"]), u2=to(c["u2"])),
+                quantized_all_to_all(to(c["x"]), bits=c["bits"], u=to(c["u"])),
+                quantized_psum_tree({k: to(v) for k, v in c["tree"].items()},
+                                    bits=c["bits"],
+                                    us=[(to(a), to(b)) for a, b in c["us"]]))
+
+    reset_counts()
+    card = [on(c, dev) for c in cases]
+    torch.cuda.synchronize(dev)
+    launched = counts()
+    for c, got in zip(cases, card):
+        p, bits = c["p"], c["bits"]
+        # The words that cross the worker axis: the kernel's against the
+        # plain version's on the card.
+        rows = c["u1"].shape[1]
+        xg = torch.nn.functional.pad(c["g"], (0, rows * 128 - c["g"].shape[1])).to(dev)
+        kernel = qc._quantize(xg.reshape(p, rows, 128), c["u1"].to(dev), bits)
+        plain = quant_pack_ref(xg.reshape(p * rows, 128), c["u1"].to(dev).reshape(-1, 128),
+                               bits)
+        for k, (a, b) in enumerate(zip(kernel, plain)):
+            if not torch.equal(a.reshape(b.shape), b):
+                fail(f"quantized_psum P={p} bits={bits}: the kernel's "
+                     f"{('words', 'zeros', 'scales')[k]} differ from the plain path's")
+        host = on(c, torch.device("cpu"))
+        for what, a, b in (("quantized_psum", got[0], host[0]),
+                           ("quantized_all_to_all", got[1], host[1]),
+                           *((f"quantized_psum_tree[{k}]", got[2][k], host[2][k])
+                             for k in host[2])):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{what} P={p} bits={bits}: the card's result differs from the "
+                     f"CPU's by {float((a.cpu() - b).abs().max()):.3e}")
+        err = float((host[0][0] - c["g"].sum(0)).abs().max())
+        print(f"[qc] P={p} bits={bits}: psum of {c['g'].shape[1]} values a worker, "
+              f"all-to-all of {tuple(c['x'].shape)}, tree of 2 leaves: words, zeros and "
+              f"scales = the plain path's on the card, results = the CPU's bitwise; "
+              f"psum max abs err against the exact sum {err:.4e}", flush=True)
+    print(f"[qc] kernel launches on the collectives' path ({len(cases)} cases): "
+          + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in ("quant_pack", "dequant_unpack"):
+        if launched[k] != 7 * len(cases):
+            fail(f"the quantized collectives launched {k} {launched[k]} times, "
+                 f"expected {7 * len(cases)}")
+    return {"launches": launched}
+
+
+def extrapolation_check(dev, name: str = "granite-moe-1b-a400m",
+                        shape: str = "prefill_32k") -> None:
+    """cost_extrapolate against a full-depth trace at 32k-token prefill (the
+    CPU tests hold decode_32k and train_4k): ``name`` at full width, 4
+    layer quanta deep, on ``dev``; FLOPs exactly, bytes within 1%."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    full = get_arch(name)
+    arch = dryrun.reduced_arch(full, 4 * dryrun._layer_quantum(full))
+    t0 = time.perf_counter()
+    dryrun.get_arch = lambda n: arch
+    try:
+        mesh = make_production_mesh()
+        est = dryrun.cost_extrapolate(name, shape, mesh, device=dev)["estimated_full"]
+        exact, _ = dryrun.build_lowered(name, shape, mesh, device=dev)
+    finally:
+        dryrun.get_arch = get_arch
+    rel = est["bytes accessed"] / exact["traffic_bytes"] - 1
+    print(f"[lm-dryrun] cost_extrapolate at {arch.num_layers} layers of {name} x {shape}: "
+          f"FLOPs {est['flops']:.6e} (full trace {exact['dot_flops']:.6e}), bytes "
+          f"{est['bytes accessed']:.6e} (full trace {exact['traffic_bytes']:.6e}, "
+          f"{rel:+.2e}); {time.perf_counter() - t0:.1f} s", flush=True)
+    if est["flops"] != exact["dot_flops"] or abs(rel) >= 0.01:
+        fail(f"cost_extrapolate on {name} x {shape} is not the full trace's")
+
+
+def lm_dryrun_phase(dev) -> dict:
+    """Phase 18: the LM dry-run's entry point on the card and on the CPU for
+    LM_DRYRUN (launch counts reset before the card's runs and read after),
+    the live-byte tracker against the allocator, the roofline over the
+    card's records, and the quantized collectives."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import roofline
+
+    t0 = time.perf_counter()
+    base = ROOT / "build" / "lm_dryrun_torch"
+    shutil.rmtree(base, ignore_errors=True)
+    reset_counts()
+    card = [run_lm_dryrun(name, shape, dev, base / "cuda") for name, shape in LM_DRYRUN]
+    launched = counts()
+    if any(launched.values()):
+        fail(f"the LM dry-run launched kernels: {launched}")
+    host = [run_lm_dryrun(name, shape, torch.device("cpu"), base / "cpu")
+            for name, shape in LM_DRYRUN]
+    for c, h in zip(card, host):
+        for key, sub in (("hlo_analysis", "dot_flops"), ("hlo_analysis", "traffic_bytes"),
+                         ("memory", "argument_size_in_bytes")):
+            if c[key][sub] != h[key][sub]:
+                fail(f"lm dryrun {c['arch']} x {c['shape']}: {sub} on the card "
+                     f"{c[key][sub]}, on the CPU {h[key][sub]}")
+        m = c["memory"]
+        print(f"[lm-dryrun] {c['arch']} x {c['shape']} on {c['mesh']} ({c['kind']}, "
+              f"nm {c['num_microbatches']}, window {c['window']}): per device "
+              f"{c['hlo_analysis']['dot_flops']:.6e} FLOPs, "
+              f"{c['hlo_analysis']['traffic_bytes']:.6e} bytes; argument "
+              f"{m['argument_size_in_bytes']} B, output {m['output_size_in_bytes']} B, "
+              f"temp {m['temp_size_in_bytes']} B (card); {c['seconds']:.2f} s on the card "
+              f"device, {h['seconds']:.2f} s on the cpu device; FLOPs, bytes and "
+              f"argument bytes equal", flush=True)
+    print(f"[lm-dryrun] kernel launches on the LM dry-run path: "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()), flush=True)
+    extrapolation_check(dev)
+    live = live_bytes_phase(dev)
+    roofline.main(["--records", str(base / "cuda")])
+    qc = quantized_collectives_phase(dev)
+    secs = time.perf_counter() - t0
+    print(f"[lm-dryrun] phase 18 in {secs:.1f} s", flush=True)
+    return {"launches": launched, "qc_launches": qc["launches"], "live": live,
+            "records": card, "seconds": secs}
+
+
 def wire_only(tree: Path, dev, smi: str) -> None:
     """``--wire TREE``: build TREE's kernels and run phase 6 on them alone,
     so that two trees (a parent and its change) are timed by one harness
@@ -2586,6 +2872,12 @@ def main() -> None:
         dryrun_phase(dev)
         print(smi)
         return
+    if sys.argv[1:2] == ["--lm-dryrun"]:
+        from repro_torch.kernels import build
+        build.build_all()
+        lm_dryrun_phase(dev)
+        print(smi)
+        return
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -2648,6 +2940,7 @@ def main() -> None:
     lm_phase(dev, smi)
     lm_trained = lm_train_phase(dev, smi)
     dry = dryrun_phase(dev)
+    lm_dry = lm_dryrun_phase(dev)
 
     t = timings["serve_F256"]
     launches = trained["launches"]
@@ -2675,7 +2968,8 @@ def main() -> None:
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
              "multiproc": multi["launches"], "tune": tuned["launches"],
-             "lm_train": lm_trained["launches"], "dryrun": dry["launches"]}
+             "lm_train": lm_trained["launches"], "dryrun": dry["launches"],
+             "lm_dryrun": lm_dry["launches"], "quantized_collectives": lm_dry["qc_launches"]}
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
     for k, nums in zip(kernels, (single_agg["forward"], single_agg["backward"])):

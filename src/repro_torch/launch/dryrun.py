@@ -1,33 +1,73 @@
-"""Dry-run of the distributed GCN trainer over its recorded step
-(counterpart of the ``--gcn`` half of ``repro.launch.dryrun``).
+"""Dry-run of every (arch × input shape) on the production meshes, and of
+the distributed GCN trainer over its recorded step (counterpart of
+``repro.launch.dryrun``).
 
-The JAX package lowers and compiles the production shard_map trainer
-against the full 256- (or 512-) device mesh and reads the compiled HLO.
-One card holds no mesh (ROADMAP A2), so here the workers run stacked on
-the device (``exec.mode=vmap``; a ``shard_map`` spec is recorded as
-``lowered_as: "vmap"``, as ``run.matrix`` does) and the "lowered module"
-is one recorded forward and backward, ``Session.lower()``
-(``core.record.LoweredStep``). The record keeps the JAX package's fields:
-the spec and its content hash, the schedule, the predicted wire bytes per
-stage, the collective order (the overlap evidence), the recorded
-collectives by the ring table (``launch.hlo_stats``), the partition's
-``CommStats``, and ``cost`` (matmul FLOPs and bytes of the same forward
-and backward, ``hlo_stats.analyze_step``). It adds
-``predicted_hlo_wire_bytes``, the all-to-all bytes the recorded step must
-carry (``Session.predicted_hlo_wire_bytes``). ``memory`` is the peak
+**The LM half** (``--arch/--shape``, ``--all``). The JAX package lowers and
+compiles each step function against ``ShapeDtypeStruct`` inputs on the
+16x16 (or 2x16x16) TPU mesh and reads XLA's memory and cost analyses. On
+one card "lower and compile" becomes a trace of the port's real step
+functions under ``torch._subclasses.fake_tensor.FakeTensorMode``: tensors
+carry shapes, dtypes and a device, and nothing is allocated or computed.
+
+  * train_4k     -> ``models.train_step`` at ``input_specs``' micro-batch
+    count (all three outputs kept)
+  * prefill_32k  -> ``forward_train`` logits
+  * decode_32k / long_500k -> ``serve_step`` (one token; ``long_500k``
+    with ``effective_window``)
+
+The inputs are ``launch.input_specs``' meta tensors on the production
+mesh, made anew as fake tensors on ``device`` for each record (one
+``FakeTensorMode`` a record: tensors of two modes do not mix). The trace
+runs ``launch.hlo_stats.trace_step``: ``FlopCounterMode`` for the matmul
+FLOPs, the traffic counter for the bytes of every op, and ``LiveBytes``
+for the peak of live storages. A record keeps the JAX package's keys:
+
+  * ``hlo_analysis`` = ``{dot_flops, traffic_bytes}`` and ``cost`` =
+    ``{flops, "bytes accessed"}``, per device: the global count / chips, an
+    even split (``flops_basis``; the port cannot see GSPMD's redundant
+    compute). By default they come from :func:`cost_extrapolate` (L1- and
+    L2-layer variants, train at one micro-batch scaled by the count);
+    ``--exact`` traces the full depth instead.
+  * ``memory`` (``memory_basis``): ``argument_size_in_bytes``, the exact
+    sum of every input leaf's shard bytes (parameters, AdamW state, batch
+    or cache and tokens); ``output_size_in_bytes``, each output that
+    updates an input at that input's shard shape, logits and the loss at
+    their tokens' batch spec; ``temp_size_in_bytes``, the trace's peak of
+    live bytes above its arguments / chips, extrapolated over layers as
+    the FLOPs are.
+  * ``collectives``: one card runs no mesh, so nothing is recorded and the
+    record does not guess what GSPMD would insert (``unrecorded``).
+  * ``trace_s`` replaces ``compile_s``; there is no ``hlo_bytes``.
+    ``--hlo-out`` writes ``<arch>__<shape>__<mesh>.ops.json`` (FLOPs by
+    operator and bytes by operator of the trace the numbers came from),
+    the port's nearest artifact to an HLO dump.
+
+**The GCN half** (``--gcn``). The JAX package lowers the production
+shard_map trainer against the full 256- (or 512-) device mesh. One card
+holds no mesh (ROADMAP A2), so here the workers run stacked on the device
+(``exec.mode=vmap``; a ``shard_map`` spec is recorded as ``lowered_as:
+"vmap"``, as ``run.matrix`` does) and the "lowered module" is one recorded
+forward and backward, ``Session.lower()`` (``core.record.LoweredStep``).
+The record keeps the JAX package's fields: the spec and its content hash,
+the schedule, the predicted wire bytes per stage, the collective order
+(the overlap evidence), the recorded collectives by the ring table
+(``launch.hlo_stats``), the partition's ``CommStats``, and ``cost``
+(matmul FLOPs and bytes of the same forward and backward,
+``hlo_stats.analyze_step``). It adds ``predicted_hlo_wire_bytes``, the
+all-to-all bytes the recorded step must carry
+(``Session.predicted_hlo_wire_bytes``). ``memory`` is the peak
 ``torch.cuda.max_memory_allocated`` of the session's build and recorded
 step above what was allocated before it, on the card; ``None`` on the
-CPU. ``compile_s`` is absent (nothing is compiled ahead of the run).
-``--assert-overlap`` fails the record (exit 1) unless a stage overlaps and
-the port's ``overlap-order`` audit rule finds no error.
+CPU. ``--assert-overlap`` fails the record (exit 1) unless a stage
+overlaps and the port's ``overlap-order`` audit rule finds no error.
 
 Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 (or ``--out``), never in the JAX package's ``experiments/dryrun/``.
 
-The LM half (``--arch``/``--shape``/``--all``) is not ported yet (ROADMAP
-A8(d3)): it raises ``NotImplementedError``.
-
 Usage:
+  python -m repro_torch.launch.dryrun --arch whisper-small --shape decode_32k \\
+      [--exact --hlo-out --multi-pod --out DIR --device cpu]
+  python -m repro_torch.launch.dryrun --all [--multi-pod --out DIR --device cpu]
   python -m repro_torch.launch.dryrun --gcn [--groups G --bits B --cd N \\
       --agg-backend ell|coo --overlap|--no-overlap --scale S --chips P \\
       --assert-overlap --out DIR --device cpu] [--spec F.json --set K=V]
@@ -36,21 +76,298 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import time
 import traceback
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES
-from repro_torch.launch.hlo_stats import analyze_step, collective_order, parse_collectives
+from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_arch
+from repro_torch.launch import input_specs as IS
+from repro_torch.launch.hlo_stats import (analyze_step, collective_order, parse_collectives,
+                                          trace_step)
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import common as MC
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.run import RunSpec, add_spec_args, build_session, spec_from_args
+from repro_torch.sharding import specs as SP
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-LM_NOT_PORTED = ("the LM half of the dry-run (--arch/--shape/--all) is not "
-                 "ported yet (ROADMAP A8(d3)); use --gcn")
+
+FLOPS_BASIS = ("FlopCounterMode over the port's step traced under FakeTensorMode at "
+               "global shapes, divided evenly by chips: GSPMD's redundant compute is "
+               "not seen")
+MEMORY_BASIS = ("argument: sum over input leaves of prod(shard shape) * itemsize; "
+                "output: an output that updates an input at that input's shard shape, "
+                "logits and the loss at their tokens' batch spec; temp: the trace's "
+                "peak of live storage bytes above its arguments (LiveBytes) / chips, "
+                "extrapolated over layers as the FLOPs are")
+COLLECTIVES_UNRECORDED = ("one card runs no mesh: the collectives GSPMD would insert "
+                          "on the production mesh are not recorded")
+
+
+# ------------------------------------------------------------------ LM half
+
+
+def _mem_dict(spec: Dict[str, Any], vocab_size: int, temp_bytes: float, mesh,
+              chips: int) -> dict:
+    """``memory`` of a record (``MEMORY_BASIS``): argument and output bytes
+    per device from the input specs' shard shapes, temp from the trace."""
+    def shard_bytes(tree) -> int:
+        return sum(math.prod(s.shard_shape) * s.tensor.element_size()
+                   for s in tree_leaves(tree))
+
+    kind = spec["shape"].kind
+    if kind == "train":
+        args = [spec["params"], spec["opt_state"], spec["batch"]]
+        # new params and AdamW state as their inputs; the loss, a scalar.
+        out = shard_bytes(spec["params"]) + shard_bytes(spec["opt_state"]) + 4
+    else:
+        tokens = spec["batch"]["tokens"] if kind == "prefill" else spec["tokens"]
+        args = ([spec["params"], spec["batch"]] if kind == "prefill"
+                else [spec["params"], spec["cache"], spec["tokens"]])
+        # logits [B, S, V] in the compute dtype, laid out as their tokens.
+        logits = tokens.shape + (vocab_size,)
+        lspec = tokens.spec + (None,)
+        out = (math.prod(SP.shard_shape(logits, lspec, mesh))
+               * torch.empty((), dtype=MC.COMPUTE_DTYPE).element_size())
+        if kind != "prefill":
+            out += shard_bytes(spec["cache"])
+    return {"argument_size_in_bytes": int(sum(shard_bytes(a) for a in args)),
+            "output_size_in_bytes": int(out),
+            "temp_size_in_bytes": int(round(temp_bytes / chips))}
+
+
+def _cost_dict(traced: dict) -> dict:
+    """Global ``{flops, "bytes accessed", "peak_live_bytes"}`` of a trace."""
+    return {"flops": traced["dot_flops"], "bytes accessed": traced["traffic_bytes"],
+            "peak_live_bytes": float(traced["peak_live_bytes"])}
+
+
+def _layer_quantum(arch) -> int:
+    """Smallest layer-count step that keeps the arch structure valid."""
+    if arch.family == "hybrid":
+        return arch.attn_every
+    if arch.family == "ssm":
+        return arch.xlstm_group
+    return 1
+
+
+def reduced_arch(arch, num_layers: int):
+    kw = {"num_layers": num_layers}
+    if arch.family == "audio":
+        kw["enc_layers"] = num_layers
+    return dataclasses.replace(arch, **kw)
+
+
+def cost_extrapolate(arch_name: str, shape_name: str, mesh, device="cuda") -> dict:
+    """Global FLOPs, bytes and peak live bytes of the full model from L1- and
+    L2-layer traces, extrapolated linearly to the full depth (the layer
+    stacks are homogeneous). Train shapes are traced at one micro-batch of
+    ``global_batch // nm`` and their FLOPs and bytes scaled by ``nm`` (the
+    optimizer's share is O(parameters)); the peak live bytes are not
+    scaled. A full-depth trace (``run_one(..., exact=True)``) is the check
+    on this."""
+    arch = get_arch(arch_name)
+    q = _layer_quantum(arch)
+    l1, l2 = q, 2 * q
+    if arch.num_layers <= l2:
+        l1, l2 = None, arch.num_layers  # tiny model: measure directly
+    shape = INPUT_SHAPES[shape_name]
+    spec_probe = IS.input_specs(arch, shape_name, mesh)
+    nm = spec_probe.get("num_microbatches") or 1
+
+    def measure(layers):
+        a = reduced_arch(arch, layers)
+        return _cost_dict(_lower(a, _one_microbatch(a, shape, mesh, nm), device))
+
+    c2 = measure(l2)
+    out = {"L2": l2, "cost_L2": c2, "num_microbatches": nm}
+    keys = list(c2)
+    if l1 is not None:
+        c1 = measure(l1)
+        out["L1"] = l1
+        out["cost_L1"] = c1
+        out["per_layer"] = {k: (c2[k] - c1[k]) / (l2 - l1) for k in keys}
+        est = {k: c2[k] + (arch.num_layers - l2) * out["per_layer"][k] for k in keys}
+    else:
+        est = {k: c2[k] for k in keys}
+    if shape.kind == "train" and nm > 1:
+        est = {k: v * nm if k != "peak_live_bytes" else v for k, v in est.items()}
+    out["estimated_full"] = est
+    return out
+
+
+def _one_microbatch(arch, shape, mesh, nm: int):
+    """``_specs_for`` at one micro-batch: a train shape at ``global_batch //
+    nm`` rows."""
+    if shape.kind == "train" and nm > 1:
+        shape = dataclasses.replace(shape, global_batch=shape.global_batch // nm)
+    return _specs_for(arch, shape, mesh, num_microbatches=1)
+
+
+def _specs_for(arch, shape, mesh, num_microbatches=None):
+    """``input_specs`` for an already-materialized (possibly reduced) arch
+    and shape object."""
+    reason = IS.skip_reason(arch, shape)
+    if reason:
+        return {"skip": reason}
+    window = IS.effective_window(arch, shape)
+    params, pspecs = IS.param_input_specs(arch, mesh, fsdp=(shape.kind == "train"))
+    out = {"params": params, "param_specs": pspecs, "window": window, "shape": shape}
+    if shape.kind == "train":
+        out["opt_state"] = IS.opt_input_specs(params, mesh)
+        out["batch"] = IS.batch_input_specs(arch, shape, mesh)
+        out["num_microbatches"] = (num_microbatches if num_microbatches
+                                   else IS.num_microbatches(arch, shape, mesh))
+    elif shape.kind == "prefill":
+        out["batch"] = IS.batch_input_specs(arch, shape, mesh)
+    else:
+        cache, tokens = IS.decode_input_specs(arch, shape, mesh)
+        out["cache"] = cache
+        out["tokens"] = tokens
+    return out
+
+
+def _lower(arch, spec, device="cuda") -> dict:
+    """The port's "lower and compile": the step function of ``spec``'s shape
+    traced once under a fresh ``FakeTensorMode``, its inputs made as fake
+    tensors on ``device`` from the specs' shapes (``hlo_stats.trace_step``'s
+    dict)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = torch.device(device)
+    window = spec["window"]
+    kind = spec["shape"].kind
+
+    def fake(s):
+        return torch.empty(s.shape, dtype=s.dtype, device=dev)
+
+    with FakeTensorMode():
+        params = tree_map(fake, spec["params"])
+        if kind == "train":
+            # The port's AdamW counts steps in a Python int.
+            opt = AdamWState(step=0, mu=tree_map(fake, spec["opt_state"].mu),
+                             nu=tree_map(fake, spec["opt_state"].nu))
+            batch = tree_map(fake, spec["batch"])
+            held = tree_leaves((params, opt.mu, opt.nu, batch))
+
+            def fn():
+                return T.train_step(params, opt, batch, arch, lr=3e-4,
+                                    num_microbatches=spec["num_microbatches"],
+                                    window=window)
+        elif kind == "prefill":
+            batch = tree_map(fake, spec["batch"])
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            held = tree_leaves((params, batch))
+
+            def fn():
+                with torch.no_grad():
+                    return T.forward_train(params, arch, batch["tokens"], extra or None,
+                                           window)
+        else:
+            cache = tree_map(fake, spec["cache"])
+            tokens = fake(spec["tokens"])
+            held = tree_leaves((params, cache, tokens))
+
+            def fn():
+                with torch.no_grad():
+                    return T.serve_step(params, cache, tokens, arch, window)
+        return trace_step(fn, held=held)
+
+
+def build_lowered(arch_name: str, shape_name: str, mesh, device="cuda"):
+    """(trace, meta) of the full-depth step, or (None, skip reason)."""
+    arch = get_arch(arch_name)
+    spec = IS.input_specs(arch, shape_name, mesh)
+    if "skip" in spec:
+        return None, spec["skip"]
+    traced = _lower(arch, spec, device)
+    meta = {"num_microbatches": spec.get("num_microbatches"),
+            "window": spec["window"], "kind": spec["shape"].kind}
+    return traced, meta
+
+
+def _ops_record(traced: dict, depth) -> dict:
+    return {"layers": depth, "flop_counts": traced["flop_counts"],
+            "bytes_by_op": traced["bytes_by_op"]}
+
+
+def run_one(arch_name: str, shape_name: str, multi_pod: bool,
+            save: bool = True, hlo_out: bool = False,
+            out_dir: Optional[Path] = None, device="cuda",
+            exact: bool = False) -> dict:
+    """One (arch × shape) record on the production mesh (module docstring):
+    FLOPs, bytes and peak live bytes from :func:`cost_extrapolate`, or with
+    ``exact`` from a full-depth trace."""
+    out_dir = Path(out_dir) if out_dir else OUT_DIR
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    chips = 512 if multi_pod else 256
+    rec = {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
+           "chips": chips, "status": "ok"}
+    t0 = time.time()
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        arch = get_arch(arch_name)
+        spec = IS.input_specs(arch, shape_name, mesh)
+        if "skip" in spec:
+            rec["status"] = "skip"
+            rec["skip_reason"] = spec["skip"]
+            return _finish(rec, t0, save, out_dir)
+        rec.update({"num_microbatches": spec.get("num_microbatches"),
+                    "window": spec["window"], "kind": spec["shape"].kind,
+                    "device": str(torch.device(device))})
+        t1 = time.time()
+        if exact:
+            traced, _ = build_lowered(arch_name, shape_name, mesh, device)
+            glob = _cost_dict(traced)
+            ops = _ops_record(traced, arch.num_layers)
+        else:
+            ext = cost_extrapolate(arch_name, shape_name, mesh, device=device)
+            glob = ext["estimated_full"]
+            rec["extrapolation"] = ext
+            ops = None
+        if hlo_out and ops is None:
+            # The L2 variant's trace, whose counts the extrapolation read.
+            a2 = reduced_arch(arch, ext["L2"])
+            sp2 = _one_microbatch(a2, spec["shape"], mesh, ext["num_microbatches"])
+            ops = _ops_record(_lower(a2, sp2, device), ext["L2"])
+        rec["trace_s"] = round(time.time() - t1, 2)
+        rec["flops_basis"] = FLOPS_BASIS + (" (full-depth trace)" if exact else
+                                            " (cost_extrapolate)")
+        rec["hlo_analysis"] = {"dot_flops": glob["flops"] / chips,
+                               "traffic_bytes": glob["bytes accessed"] / chips}
+        rec["cost"] = {"flops": glob["flops"] / chips,
+                       "bytes accessed": glob["bytes accessed"] / chips}
+        rec["memory"] = _mem_dict(spec, arch.vocab_size, glob["peak_live_bytes"], mesh,
+                                  chips)
+        rec["memory_basis"] = MEMORY_BASIS
+        rec["collectives"] = {"total": {"count": 0, "operand_bytes": None,
+                                        "result_bytes": None, "wire_bytes": None},
+                              "unrecorded": COLLECTIVES_UNRECORDED}
+        if hlo_out:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            (out_dir / f"{arch_name}__{shape_name}__{mesh_name}.ops.json").write_text(
+                json.dumps(ops, indent=1))
+        m = rec["memory"]
+        print(f"  flops={rec['cost']['flops']:.3e} bytes={rec['cost']['bytes accessed']:.3e} "
+              f"per device; argument={m['argument_size_in_bytes']:.3e} "
+              f"output={m['output_size_in_bytes']:.3e} temp={m['temp_size_in_bytes']:.3e} B",
+              flush=True)
+    except Exception as e:
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-3000:]
+    return _finish(rec, t0, save, out_dir)
+
+
+# ----------------------------------------------------------------- GCN half
 
 
 def gcn_base_spec(nparts: int, scale: int = 13) -> RunSpec:
@@ -185,13 +502,17 @@ def run_gcn_dryrun(spec: RunSpec, mesh_name: str = None, save: bool = True,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=ARCH_NAMES,
-                    help="the LM half: not ported yet (ROADMAP A8(d3))")
-    ap.add_argument("--shape", choices=list(INPUT_SHAPES),
-                    help="the LM half: not ported yet (ROADMAP A8(d3))")
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true",
-                    help="the LM half: not ported yet (ROADMAP A8(d3))")
+                    help="every arch x shape on one production mesh")
+    ap.add_argument("--exact", action="store_true",
+                    help="trace the full depth for FLOPs and bytes instead of "
+                         "cost_extrapolate's L1/L2 layers")
+    ap.add_argument("--hlo-out", action="store_true",
+                    help="also write <arch>__<shape>__<mesh>.ops.json (FLOPs and "
+                         "bytes by operator)")
     ap.add_argument("--gcn", action="store_true",
                     help="dry-run the SuperGCN distributed trainer")
     add_spec_args(ap)
@@ -230,7 +551,8 @@ def main(argv=None):
     ap.add_argument("--out", default="",
                     help=f"record directory (default: {OUT_DIR})")
     ap.add_argument("--device", default="cuda",
-                    help="torch device the workers run on (default: cuda)")
+                    help="torch device the GCN workers run on, or the LM trace's "
+                         "fake tensors lie on (default: cuda)")
     args = ap.parse_args(argv)
     out_dir = Path(args.out) if args.out else None
 
@@ -247,9 +569,23 @@ def main(argv=None):
                              assert_overlap=args.assert_overlap,
                              out_dir=out_dir, device=args.device)
         raise SystemExit(0 if rec["status"] == "ok" else 1)
-    if args.all or args.arch or args.shape:
-        raise NotImplementedError(LM_NOT_PORTED)
-    ap.error(f"need --gcn: {LM_NOT_PORTED}")
+    if args.all:
+        results = []
+        for a in ARCH_NAMES:
+            for s in INPUT_SHAPES:
+                results.append(run_one(a, s, args.multi_pod, hlo_out=args.hlo_out,
+                                       out_dir=out_dir, device=args.device,
+                                       exact=args.exact))
+        ok = sum(r["status"] == "ok" for r in results)
+        skip = sum(r["status"] == "skip" for r in results)
+        err = sum(r["status"] == "error" for r in results)
+        print(f"\n== dry-run summary: {ok} ok / {skip} skip / {err} error ==")
+        raise SystemExit(1 if err else 0)
+    if not (args.arch and args.shape):
+        ap.error("need --arch and --shape (or --all / --gcn)")
+    rec = run_one(args.arch, args.shape, args.multi_pod, hlo_out=args.hlo_out,
+                  out_dir=out_dir, device=args.device, exact=args.exact)
+    raise SystemExit(0 if rec["status"] in ("ok", "skip") else 1)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,9 @@ a callable, never text.
 * :func:`analyze_step` runs a callable once and counts its matmul FLOPs
   (``torch.utils.flop_counter.FlopCounterMode``) and the bytes of every
   tensor that each non-view op reads and writes, each kernel wrapper's
-  call counted as one op (``kernels.traffic``).
+  call counted as one op (``kernels.traffic``). :func:`trace_step` does
+  the same and also follows the bytes of live tensor storages
+  (:class:`LiveBytes`); the LM dry-run runs it under ``FakeTensorMode``.
 
 ``while_trip_counts`` has no counterpart: the port's loops run, so a
 layer loop's ops are recorded (and counted) once per trip.
@@ -34,7 +36,9 @@ layer loop's ops are recorded (and counted) once per trip.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import weakref
+from collections import Counter
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten
@@ -107,7 +111,22 @@ _META_OPS = frozenset((
     "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
     "detach", "alias", "lift_fresh", "lift_fresh_copy", "sym_size",
     "sym_stride", "sym_numel", "sym_storage_offset", "is_same_size",
-    "record_stream", "set_"))
+    "record_stream", "set_", "device"))
+
+
+def _all(args, kwargs, out):
+    return args, kwargs, out
+
+
+# Ops whose CPU kernel returns a scratch tensor that the CUDA kernel leaves
+# empty: log_sigmoid's buffer is the size of its input on the CPU and has
+# no elements on the card. The count takes the op's value alone (and
+# leaves the buffer out of its backward's operands), so both devices give
+# the same figure.
+_SCRATCH = {
+    "log_sigmoid_forward": lambda args, kwargs, out: (args, kwargs, out[0]),
+    "log_sigmoid_backward": lambda args, kwargs, out: (args[:2], kwargs, out),
+}
 
 
 class _Traffic(TorchDispatchMode):
@@ -117,16 +136,61 @@ class _Traffic(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.bytes = 0
+        self.by_op: Counter = Counter()
 
     def add(self, n: int) -> None:
         self.bytes += n
+        self.by_op["kernel"] += n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not (func.is_view or func.overloadpacket.__name__ in _META_OPS):
-            leaves, _ = tree_flatten((args, kwargs or {}, out))
-            self.bytes += sum(t.numel() * t.element_size() for t in leaves
-                              if isinstance(t, torch.Tensor))
+        name = func.overloadpacket.__name__
+        if not (func.is_view or name in _META_OPS):
+            n = kernel_traffic.tensor_bytes(*_SCRATCH.get(name, _all)(args, kwargs or {}, out))
+            self.bytes += n
+            self.by_op[name] += n
+        return out
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak bytes of tensor storages that ops create while the mode is
+    on and that are still alive: each result's storage is counted once when
+    it first appears and uncounted when it is freed (followed by weakref).
+    The storages of ``held`` tensors (the step's arguments) are never
+    counted, so an op that writes into them in place adds nothing. Works
+    on real tensors and under ``FakeTensorMode`` alike."""
+
+    def __init__(self, held: Iterable[torch.Tensor] = ()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._seen: Dict[int, weakref.ref] = {}
+        for t in held:
+            st = t.untyped_storage()
+            self._seen[id(st)] = weakref.ref(st)
+
+    def _freed(self, key: int, n: int, ref) -> None:
+        if self._seen.get(key) is ref:
+            del self._seen[key]
+            self.live -= n
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        ref = self._seen.get(key)
+        if ref is not None and ref() is st:
+            return
+        n = st.nbytes()
+        self.live += n
+        self._seen[key] = weakref.ref(
+            st, lambda r, key=key, n=n: self._freed(key, n, r))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self._track(t)
+        self.peak = max(self.peak, self.live)
         return out
 
 
@@ -144,9 +208,25 @@ def analyze_step(fn: Callable, *args, **kwargs) -> Dict[str, float]:
     arguments and writes its results, on the card and on the CPU alike
     (its plain version's ops are not counted), so the two devices give the
     same figure."""
+    out = trace_step(lambda: fn(*args, **kwargs))
+    return {k: out[k] for k in ("dot_flops", "traffic_bytes")}
+
+
+def trace_step(fn: Callable[[], object], held: Iterable[torch.Tensor] = ()) -> dict:
+    """Run ``fn()`` once under the counters of :func:`analyze_step` and a
+    :class:`LiveBytes` that leaves ``held`` out. Returns ``dot_flops``,
+    ``traffic_bytes``, ``peak_live_bytes``, ``flop_counts`` (FLOPs by
+    module and operator, ``FlopCounterMode.get_flop_counts``) and
+    ``bytes_by_op`` (traffic by operator; ``kernel`` for the kernel
+    wrappers)."""
     flops = FlopCounterMode(display=False)
     traffic = _Traffic()
-    with flops, traffic, kernel_traffic.counting(traffic.add):
-        fn(*args, **kwargs)
+    live = LiveBytes(held)
+    with flops, traffic, kernel_traffic.counting(traffic.add), live:
+        fn()
+    counts = {str(mod): {str(op): int(n) for op, n in ops.items()}
+              for mod, ops in flops.get_flop_counts().items()}
     return {"dot_flops": float(flops.get_total_flops()),
-            "traffic_bytes": float(traffic.bytes)}
+            "traffic_bytes": float(traffic.bytes),
+            "peak_live_bytes": int(live.peak), "flop_counts": counts,
+            "bytes_by_op": dict(traffic.by_op)}

@@ -666,3 +666,41 @@ def test_gcn_dryrun_on_card_launches_the_kernels(cuda):
     _, launched = _gcn_dryrun_on_card(cuda)
     for k in ("seg_aggregate", "seg_aggregate_backward", "quant_pack", "dequant_unpack"):
         assert launched[k] > 0, (k, launched)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_collectives_on_card_equal_the_plain_path(cuda, p, bits):
+    """The quantized all-reduce, its tree version and the all-to-all on the
+    card (quant_pack / dequant_unpack kernels) bitwise equal to the same
+    calls on the CPU (the plain versions) with the same uniforms."""
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.sharding import (quantized_all_to_all, quantized_psum,
+                                      quantized_psum_tree)
+
+    gen = torch.Generator().manual_seed(p * 10 + bits)
+    n = 3000
+    rows = (n + (-n) % (p * 512)) // 128
+    g = torch.randn((p, n), generator=gen) * 2
+    u1 = torch.rand((p, rows, 128), generator=gen)
+    u2 = torch.rand((p, rows // p, 128), generator=gen)
+    x = torch.randn((p, p * 8, 100), generator=gen)
+    u = torch.rand(x.shape, generator=gen)
+    tree = {"a": torch.randn((p, 40), generator=gen), "b": torch.randn((p, 8, 16),
+                                                                        generator=gen)}
+    us = [(torch.rand((p, 4 * p, 128), generator=gen),
+           torch.rand((p, 4, 128), generator=gen)) for _ in range(2)]
+    before = (qp.pack_launches, qp.unpack_launches)
+    card = (quantized_psum(g.to(cuda), bits=bits, u1=u1.to(cuda), u2=u2.to(cuda)),
+            quantized_all_to_all(x.to(cuda), bits=bits, u=u.to(cuda)),
+            quantized_psum_tree({k: v.to(cuda) for k, v in tree.items()}, bits=bits,
+                                us=[(a.to(cuda), b.to(cuda)) for a, b in us]))
+    assert (qp.pack_launches - before[0], qp.unpack_launches - before[1]) == (7, 7)
+    host = (quantized_psum(g, bits=bits, u1=u1, u2=u2),
+            quantized_all_to_all(x, bits=bits, u=u),
+            quantized_psum_tree(tree, bits=bits, us=us))
+    assert torch.equal(card[0].cpu(), host[0])
+    assert torch.equal(card[1].cpu(), host[1])
+    for k in tree:
+        assert torch.equal(card[2][k].cpu(), host[2][k])
