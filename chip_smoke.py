@@ -12,6 +12,9 @@
     python3 chip_smoke.py --lm-train      # phases 1, 2 and 16 only
     python3 chip_smoke.py --dryrun        # phases 1, 2 and 17 only
     python3 chip_smoke.py --lm-dryrun     # phases 1, 2 and 18 only
+    python3 chip_smoke.py --shard-map     # phases 1, 2 and 19 only (with
+                                          # phase 7's stacked run and phase
+                                          # 12 as its references)
     python3 chip_smoke.py --time [TREE]   # phase 4's burst and phase 7's
                                           # epochs, longer, on the checkout
                                           # at TREE (for parent/change A/B)
@@ -182,9 +185,10 @@ the result line is printed:
              kernel launch counts are reset before and read after (the
              path launches none). Then one train_step at
              num_microbatches=2 on the card against the CPU from the same
-             parameters and batch, at full width with the first layers
-             (tinyllama, granite-moe, deepseek, qwen2-vl with patches 2;
-             zamba2 6 at 256 tokens; xLSTM 4; whisper 2 + 2): at fp32 the
+             parameters and batch, at full width with the first layer
+             (tinyllama, granite-moe, deepseek and qwen2-vl with its
+             patches 1; zamba2 6 at 256 tokens, so its shared block runs;
+             xLSTM 4, one group; whisper 1 + 1): at fp32 the
              loss within 1e-5 relative and every gradient, mu and nu leaf
              within 1e-5 x its tree's max; at bf16 the loss within
              serve_llm.bf16_bar; every gradient finite in both.
@@ -230,7 +234,26 @@ the result line is printed:
              scales bitwise equal to the plain path's on the card, every
              result bitwise equal to the CPU's from the same uniforms, with
              the launches of quant_pack and dequant_unpack counted.
-19. the kernels line (JSON, with each kernel's launches on every path), the
+19. shard_map — train_products_paper under exec.mode=shard_map
+             (launch/spmd.py: one process per worker, the exchange and the
+             gradient sum over torch.distributed collectives) as 2x4 ranks
+             over gloo on the one card (backend="gloo": the rank logic on
+             device tensors, every buffer staged through host memory by
+             gloo, so its times are host-staged, not NCCL's), from phase
+             7's parameters and draws. Every kernel is held at a rank's
+             shapes first (phase 12's check). 4 epochs and an evaluation:
+             losses bitwise equal to phase 12's multiproc losses and within
+             phase 12's bars of phase 7's stacked ones; every rank launches
+             every kernel (per-rank counts printed); a stale epoch moves
+             fewer wire bytes than a refresh; per-rank epoch ms, host
+             seconds in the wire and in Work.wait, wire bytes. Then the
+             fleet restores its epoch-0 checkpoint and runs again: bitwise.
+             Then NCCL over the visible cards, each against the stacked run
+             of its spec under the same bars, every rank launching every
+             kernel: a flat P = 1 Int2 variant on any card (each collective
+             a self-send); with 4 cards or more, the 2x2 flagship schedule
+             with one rank a card.
+20. the kernels line (JSON, with each kernel's launches on every path), the
              nvidia-smi line, and the result line.
 """
 
@@ -1388,9 +1411,9 @@ def rank_draw_cost(dev) -> dict:
     return {"stacked_ms": out[MP_RANKS], "own_row_ms": out[1]}
 
 
-def check_rank_kernels(rt, dev) -> dict:
-    """Every kernel of the multiproc path at the shapes a rank gives it,
-    before the fleet starts. seg_aggregate forward and backward on each
+def check_rank_kernels(rt, dev, tag: str = "multiproc") -> dict:
+    """Every kernel of the multiproc (or shard_map: ``tag``) path at the
+    shapes a rank gives it, before the fleet starts. seg_aggregate forward and backward on each
     rank's ``[1, ...]`` slice of the ten training layouts, built from the
     runtime's store arrays as the rank builds them: two launches bitwise,
     bitwise equal to that rank's row of one stacked launch, and within
@@ -1434,7 +1457,7 @@ def check_rank_kernels(rt, dev) -> dict:
                          "stacked launch")
                 k = "seg_aggregate_backward" if bwd else "seg_aggregate"
                 worst[k] = max(worst[k], max_err(y, sa.bucketed_forward_ref(xr, lay, n_out)))
-    print(f"[multiproc] seg_aggregate forward and backward on every rank's [1, ...] "
+    print(f"[{tag}] seg_aggregate forward and backward on every rank's [1, ...] "
           f"slice of the {len(layouts)} training layouts at F in "
           f"{sorted(set(meta['feat_dims']))}: two launches bitwise, bitwise equal to "
           f"the rank's row of the stacked launch; max abs err to the plain version "
@@ -1458,8 +1481,8 @@ def check_rank_kernels(rt, dev) -> dict:
                 worst[k] = max(worst[k], e)
             shapes.append((stage.level, qrows, f, stage.bits))
     if not shapes:
-        fail("multiproc: the schedule quantizes no stage")
-    print(f"[multiproc] quant_pack and dequant_unpack equal their plain versions "
+        fail(f"{tag}: the schedule quantizes no stage")
+    print(f"[{tag}] quant_pack and dequant_unpack equal their plain versions "
           f"bitwise at each rank's quantized shapes (level, rows, F, bits) {shapes}",
           flush=True)
     return {"max_abs_err": worst, "quant_shapes": shapes, "layouts": len(layouts)}
@@ -1581,6 +1604,207 @@ def recovery_phase(dev, uninterrupted: dict) -> dict:
     if not case["ok"]:
         fail(f"recovery on the card: {case['checks']} (error {case['error']})")
     return case
+
+
+# -- phase 19: exec.mode=shard_map ------------------------------------------------
+
+# The NCCL variants: a flat P = 1 run on any card (each collective a
+# self-send, through the process group, its streams, work handles and the
+# autograd Functions); with four cards or more, the 2x2 flagship schedule
+# with one rank a card. Each against the stacked run of the same spec.
+SM_NCCL = (("flat P = 1, Int2 cd=2", 1, ["partition.groups=0", "partition.nparts=1",
+                                           "schedule.inter_bits=null",
+                                           "schedule.inter_cd=null", "schedule.bits=2",
+                                           "schedule.cd=2"]),
+           ("2x2, one rank a card", 4, ["partition.groups=2", "partition.nparts=4"]))
+
+
+def _timed_epochs(session, n: int) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = session.train_epoch()
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        out.append(m)
+    return out
+
+
+def _rank_launches(stats, eval_launches) -> list:
+    """Per rank: each kernel's launches over the epochs of ``stats`` and the
+    evaluation."""
+    return [{k: sum(st["launches"][r][k] for st in stats) + ev[k] for k in ev}
+            for r, ev in enumerate(eval_launches)]
+
+
+def _print_sm_epochs(tag: str, epochs, stats, ref, label: str) -> None:
+    for i, (m, st) in enumerate(zip(epochs, stats)):
+        kind = "refresh" if i % 2 == 0 else "stale"
+        print(f"[{tag}] epoch {i} ({kind}): loss {m['loss']:.9f} ({label} "
+              f"{ref[i]:.9f}, diff {abs(m['loss'] - ref[i]):.3e}); {m['ms']:.3f} ms on the "
+              f"host clock; per rank: epoch ms {[round(x * 1e3, 3) for x in st['rank_epoch_s']]}, "
+              f"host seconds in the wire (wire_s) {[round(w, 6) for w in st['wire_s']]}, of "
+              f"them in Work.wait (wait_s) {[round(w, 6) for w in st['wait_s']]}; wire_bytes "
+              f"{st['wire_bytes']}", flush=True)
+
+
+def shard_map_nccl(dev, label: str, over, cache) -> dict:
+    """One NCCL variant: the stacked run of the spec, then the shard_map
+    run over NCCL from the same parameters and draws (seed 0), 4 epochs and
+    an evaluation; phase 12's bars against the stacked losses; every rank
+    must launch every kernel. ``cache`` (a ``run.session.BuildCache``)
+    builds the graph and partition once for both runs."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.run import build_session
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stacked = build_session(train_products_paper(*over), device=dev, cache=cache)
+    ref = [stacked.train_epoch()["loss"] for _ in range(TRAIN_EPOCHS)]
+    ref_acc = stacked.evaluate()
+    del stacked
+    torch.cuda.empty_cache()
+    spec = train_products_paper("exec.mode=shard_map", *over)
+    t1 = time.perf_counter()
+    session = build_session(spec, device=dev, cache=cache)
+    rt = session.trainer
+    tag = f"shard_map nccl {label}"
+    try:
+        print(f"[{tag}] {spec.describe()}: {rt.nprocs} ranks over {rt.backend} on "
+              f"{rt.devices}, mesh {rt.mesh.shape}; the stacked reference took "
+              f"{t1 - t0:.2f} s", flush=True)
+        epochs = _timed_epochs(session, TRAIN_EPOCHS)
+        acc = session.evaluate()
+        stats, per_rank = list(rt.epoch_stats), _rank_launches(rt.epoch_stats, rt.eval_launches)
+    finally:
+        session.close()
+    losses = [m["loss"] for m in epochs]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    _print_sm_epochs(tag, epochs, stats, ref, "stacked")
+    print(f"[{tag}] eval accuracy {acc:.4f} (stacked {ref_acc:.4f}); kernel launches per "
+          f"rank {per_rank}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite losses {losses}")
+    if diffs[0] > TOL or max(diffs[1:]) > 1e-3:
+        fail(f"{tag}: losses differ from the stacked run's: {diffs} (bars {TOL} at "
+             "epoch 0, 1e-3 after)")
+    for r, total in enumerate(per_rank):
+        for k, v in total.items():
+            if v <= 0:
+                fail(f"{tag}: rank {r} launched no {k} kernel")
+    return {"losses": losses, "diffs": diffs, "stats": stats, "per_rank": per_rank}
+
+
+def shard_map_phase(dev, stacked: dict, multi: dict) -> dict:
+    """Phase 19: train_products_paper under exec.mode=shard_map as 2x4
+    ranks over gloo on the card (backend="gloo": the rank logic on device
+    tensors, every buffer staged through host memory by gloo), from phase
+    7's parameters and draws (seed 0): every kernel held at a rank's
+    shapes first; 4 epochs and an evaluation, their losses bitwise phase
+    12's multiproc losses and within phase 12's bars of phase 7's stacked
+    ones; every rank launches every kernel; a stale epoch moves fewer wire
+    bytes than a refresh; then the fleet restores its epoch-0 checkpoint
+    and runs again, bitwise. Then NCCL over the visible cards
+    (``SM_NCCL``)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.launch.shm_store import leaked_segments
+    from repro_torch.run import build_session
+    from repro_torch.run.session import BuildCache
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cache = BuildCache()
+    spec = train_products_paper("exec.mode=shard_map")
+    session = build_session(spec, device=dev, backend="gloo", cache=cache)
+    rt = session.trainer
+    tag = "shard_map gloo"
+    runs = []
+    try:
+        print(f"[{tag}] {spec.describe()}: {rt.nprocs} ranks over gloo on {rt.devices[0]}, "
+              f"mesh {rt.mesh.shape}, built in {time.perf_counter() - t_phase:.2f} s; "
+              "host-staged: gloo's CUDA collectives copy every buffer through host "
+              "memory, so these times are not NCCL's", flush=True)
+        t0 = time.perf_counter()
+        checked = check_rank_kernels(rt, dev, tag=tag)
+        print(f"[{tag}] kernels checked at a rank's shapes in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            t0 = time.perf_counter()
+            rt.save_train_state(mgr)          # spawns the fleet; epoch 0
+            print(f"[{tag}] fleet up and epoch 0 saved in {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+            for run in range(2):
+                if run:
+                    rt.restore_train_state_from(mgr, step=0)
+                epochs = _timed_epochs(session, TRAIN_EPOCHS)
+                acc = session.evaluate()
+                runs.append({"epochs": epochs, "acc": acc,
+                             "stats": list(rt.epoch_stats[-TRAIN_EPOCHS:]),
+                             "per_rank": _rank_launches(rt.epoch_stats[-TRAIN_EPOCHS:],
+                                                        rt.eval_launches)})
+        smry = rt.summary()
+        token = rt.token
+    finally:
+        session.close()
+    leaked = leaked_segments(token)
+    first = runs[0]
+    losses = [m["loss"] for m in first["epochs"]]
+    ref = [m["loss"] for m in stacked["epochs"]]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    _print_sm_epochs(tag, first["epochs"], first["stats"], multi["losses"], "multiproc")
+    print(f"[{tag}] against phase 7's stacked losses: diffs {[f'{x:.3e}' for x in diffs]}; "
+          f"eval accuracy {first['acc']:.4f} (multiproc {multi['eval_acc']:.4f}, stacked "
+          f"{stacked['eval_acc']:.4f})", flush=True)
+    for r, total in enumerate(first["per_rank"]):
+        print(f"[{tag}] rank {r} kernel launches (4 epochs + eval): {total}", flush=True)
+    for r in smry["ranks"]:
+        print(f"[{tag}] rank {r['rank']} at the end: device memory allocated "
+              f"{r.get('device_bytes', 0) / 1e6:.1f} MB, peak "
+              f"{r.get('device_peak_bytes', 0) / 1e6:.1f} MB; RSS {r['rss_now'] / 1e6:.1f} MB",
+              flush=True)
+    second = [m["loss"] for m in runs[1]["epochs"]]
+    print(f"[{tag}] second run from the epoch-0 checkpoint: losses {second}, eval "
+          f"{runs[1]['acc']:.4f}; leaked segments {leaked}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite losses {losses}")
+    if losses != multi["losses"]:
+        fail(f"{tag}: losses {losses} are not bitwise phase 12's multiproc losses "
+             f"{multi['losses']}")
+    if diffs[0] > TOL or max(diffs[1:]) > 1e-3:
+        fail(f"{tag}: losses differ from the stacked run's: {diffs} (bars {TOL} at "
+             "epoch 0, 1e-3 after)")
+    for r, total in enumerate(first["per_rank"]):
+        for k, v in total.items():
+            if v <= 0:
+                fail(f"{tag}: rank {r} launched no {k} kernel")
+    wb = [st["wire_bytes"][0] for st in first["stats"]]
+    if not wb[1] < wb[0]:
+        fail(f"{tag}: a stale epoch moved no fewer wire bytes than a refresh: {wb}")
+    if second != losses or runs[1]["acc"] != first["acc"]:
+        fail(f"{tag}: the second run differs: {second} vs {losses}")
+    if leaked:
+        fail(f"{tag}: leaked shared-memory segments {leaked}")
+    cards = torch.cuda.device_count()
+    nccl = [shard_map_nccl(dev, label, over, cache) for label, need, over in SM_NCCL
+            if cards >= need]
+    secs = time.perf_counter() - t_phase
+    print(f"[shard_map] phase 19 in {secs:.1f} s ({cards} visible card(s): NCCL ran "
+          f"{[label for label, need, _ in SM_NCCL if cards >= need]})", flush=True)
+    launched = {k: sum(t[k] for t in first["per_rank"]) for k in first["per_rank"][0]}
+    return {"losses": losses, "diffs": diffs, "stats": first["stats"],
+            "launches": launched, "per_rank": first["per_rank"], "checked": checked,
+            "nccl": nccl, "seconds": secs}
 
 
 # -- phase 14: audit and tune -------------------------------------------------
@@ -2097,7 +2321,7 @@ BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 (data sheet)
 LM_TRAIN_FP32_BAR = 1e-5
 # Card vs CPU, one train_step at num_microbatches=2 over 2 sequences of
 # this many tokens, each configuration at full width with its first
-# layers (lm_reduced_cfg). zamba2 at 256 tokens: two of its 128-token SSD
+# layer (lm_parity_cfg). zamba2 at 256 tokens: two of its 128-token SSD
 # chunks, the length where the reference's decay overflows (C-ref14).
 # qwen2-vl's sequences start with 64 patches (its 256 cut to keep the
 # CPU's side short; the count changes no code path).
@@ -2240,6 +2464,17 @@ def lm_train_config(name: str, dev, smi: str) -> dict:
     return out
 
 
+def lm_parity_cfg(cfg):
+    """Phase 16's card-vs-CPU configuration: ``cfg`` at full width with its
+    first layer only (whisper 1 + 1), where a family's smallest whole unit
+    is one layer; zamba2 keeps ``attn_every`` layers (so the shared block
+    runs once) and xLSTM one group (its sLSTM block)."""
+    import dataclasses
+
+    n = {"hybrid": cfg.attn_every, "ssm": cfg.xlstm_group}.get(cfg.family, 1)
+    return dataclasses.replace(cfg, num_layers=n, enc_layers=min(cfg.enc_layers, 1))
+
+
 def lm_train_parity(name: str, seq: int, dev) -> dict:
     """Phase 16 (c): one ``train_step`` at num_microbatches=2 (its two
     halves, ``loss_and_grads`` and ``adamw_update`` at lr 3e-4 with the
@@ -2258,7 +2493,7 @@ def lm_train_parity(name: str, seq: int, dev) -> dict:
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.utils.trees import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(lm_reduced_cfg(get_arch(name)), vision_patches=LM_TRAIN_PATCHES)
+    cfg = dataclasses.replace(lm_parity_cfg(get_arch(name)), vision_patches=LM_TRAIN_PATCHES)
     tag = f"[lm-train] {name}: card vs CPU, " + (
         f"{cfg.num_layers} + {cfg.enc_layers} layers" if cfg.family == "audio"
         else f"{cfg.num_layers} layers") + f", 2 x {seq} tokens"
@@ -2803,6 +3038,24 @@ def time_tree(tree: Path, dev, smi: str) -> None:
     print(smi)
 
 
+def shard_map_only(dev, smi: str) -> None:
+    """``--shard-map``: phases 1, 2 and 19, with the references phase 19
+    holds itself to: phase 7's stacked losses (4 epochs of
+    train_products_paper, stacked) and phase 12's multiproc run."""
+    from repro_torch.configs.train_products_paper import train_products_paper
+    from repro_torch.kernels import build
+    from repro_torch.run import build_session
+
+    build.build_all()
+    session = build_session(train_products_paper(), device=dev)
+    epochs = _timed_epochs(session, TRAIN_EPOCHS)
+    stacked = {"epochs": epochs, "eval_acc": session.evaluate()}
+    del session
+    print(f"[train] stacked losses {[m['loss'] for m in epochs]}", flush=True)
+    shard_map_phase(dev, stacked, multiproc_phase(dev, stacked))
+    print(smi)
+
+
 def experiments(dev, smi: str) -> None:
     """``--experiments``: the two one-off measurements whose readings
     PERF.md keeps, outside the smoke's phases: ROADMAP C2's
@@ -2878,6 +3131,8 @@ def main() -> None:
         lm_dryrun_phase(dev)
         print(smi)
         return
+    if sys.argv[1:2] == ["--shard-map"]:
+        return shard_map_only(dev, smi)
 
     from repro_torch.configs.serve_products_paper import serve_products_paper
     from repro_torch.configs.train_products_paper import train_products_paper
@@ -2936,6 +3191,7 @@ def main() -> None:
     ckpt = ckpt_phase(dev)
     multi = multiproc_phase(dev, trained)
     recovery_phase(dev, multi)
+    sm = shard_map_phase(dev, trained, multi)
     tuned = audit_tune_phase(dev)
     lm_phase(dev, smi)
     lm_trained = lm_train_phase(dev, smi)
@@ -2962,12 +3218,14 @@ def main() -> None:
                                     "ms_after_flush", "F100") if k in nums}})
     for k in kernels:
         k["multiproc_max_abs_err"] = multi["checked"]["max_abs_err"][k["name"]]
+        k["shard_map_max_abs_err"] = sm["checked"]["max_abs_err"][k["name"]]
         k["tune_max_abs_err"] = tuned["max_abs_err"][k["name"]]
         k["dryrun_max_abs_err"] = dry["max_abs_err"][k["name"]]
     paths = {"serve": {"seg_aggregate": served["launches"]}, "train": launches,
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
-             "multiproc": multi["launches"], "tune": tuned["launches"],
+             "multiproc": multi["launches"], "shard_map": sm["launches"],
+             "tune": tuned["launches"],
              "lm_train": lm_trained["launches"], "dryrun": dry["launches"],
              "lm_dryrun": lm_dry["launches"], "quantized_collectives": lm_dry["qc_launches"]}
     for k in kernels:

@@ -10,9 +10,11 @@ location, fix hint). Rules register into :data:`RULES` via
 session on its device, the recorded step, the predicted wire bytes) that
 only pays for what the selected rules touch.
 
-A ``shard_map`` spec does not build in the port (one card holds no
-mesh); its context builds the stacked variant (``exec.mode=vmap``, the
-override the tuner's audit applies) and says so in ``lowered_as``.
+A ``shard_map`` spec trains as one process per worker
+(``launch.spmd``), which has no single recorded step; its context builds
+the stacked variant (``exec.mode=vmap``, the override the tuner's audit
+applies) and says so in ``lowered_as``. Recording a rank's own
+collectives is later work.
 """
 
 from __future__ import annotations

@@ -40,7 +40,9 @@ a Python int and the draws are keyed by (epoch, layer, stage), so a
 skipped wire shifts no other draw.
 
 The wire itself is a per-stage transport: :class:`StackedWire` here, the
-mailbox rounds of ``launch.multiproc`` for one OS process per worker.
+mailbox rounds of ``launch.multiproc`` for one OS process per worker, or
+:class:`CollectiveWire`, ``torch.distributed`` collectives between one
+process per worker (``exec.mode=shard_map``, ``launch.spmd``).
 
 The step recorder (:func:`recording`) is off unless a caller switches it
 on around a step: ``DistributedTrainer.lower_step`` does, for the
@@ -52,6 +54,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -667,6 +671,215 @@ class StackedWire(NamedTuple):
 
     def collect(self, recv: torch.Tensor) -> torch.Tensor:
         return recv
+
+
+def _timed_wire(method):
+    """Add a wire call's host seconds to its owner's ``clock["wire_s"]``
+    (the collectives here, ``launch.multiproc``'s mailbox rounds)."""
+    @functools.wraps(method)
+    def run(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return method(self, *args)
+        finally:
+            self.clock["wire_s"] += time.perf_counter() - t0
+    return run
+
+
+class _CollPost(torch.autograd.Function):
+    """Issue ``send``'s collectives (no waiting) and pass ``send`` through
+    as the carrier :class:`_CollCollect` takes."""
+
+    @staticmethod
+    def forward(ctx, send, wire):
+        wire.h_post(send)
+        return send.view_as(send)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CollCollect(torch.autograd.Function):
+    """Wait for the posted collectives and finish the receive buffer. The
+    backward is the stage's transposed wire, re-quantized with the
+    backward uniforms."""
+
+    @staticmethod
+    def forward(ctx, carrier, wire):
+        ctx.wire = wire
+        return wire.h_collect()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.wire.h_bwd(g.contiguous()), None
+
+
+class CollectiveWire:
+    """One stage's transport for one process per worker, over
+    ``torch.distributed`` process groups (``exec.mode="shard_map"``, the
+    counterpart of the JAX package's ``shard_map`` collectives): the
+    ``post(send, noise)`` / ``collect(handle)`` contract of
+    :class:`StackedWire`, on this rank's ``[1, rows, F]`` buffers.
+
+    ``groups`` maps the mesh's axis names to this rank's process groups
+    (``launch.mesh.mesh_groups``). A ``a2a`` stage (flat, or intra over the
+    node group) is one ``all_to_all_single`` in ``wire_chunks`` equal
+    chunks. A ``grouped`` stage is the psum_scatter over the node group
+    (an all_to_all, then the sum over the W sources in node order, first
+    source first, as the stacked ``_pre_wire`` and the multiproc mailboxes
+    sum), the all_to_all over the group axis, and the all_gather over the
+    node group. A quantized all_to_all quantizes the whole buffer with
+    ``quant_pack`` and moves the packed words and the fp32 (zero, scale)
+    per 4-row group, then ``dequant_unpack``: ``_quantized_wire`` on one
+    rank. Its uniforms are this rank's row of the stacked draw
+    ``noise(backward, (P, rows, F))``, so a rank quantizes with the numbers
+    the stacked run gives its worker.
+
+    ``post`` issues its collectives with ``async_op=True`` and returns;
+    ``collect`` waits on the work handles. Between the two the rank runs
+    its local aggregation, so an ``overlap`` stage's wire runs beside it
+    (on NCCL's stream, or gloo's thread). The backward of a collect is the
+    stage's transposed pipeline, issued and waited in one go: an
+    all_to_all's transpose is itself, the all_gather's a psum_scatter and
+    the psum_scatter's an all_gather.
+
+    ``clock`` gathers this rank's ``wire_s`` (host seconds in the wire),
+    ``wait_s`` (of them, in ``Work.wait``: on gloo until the data arrived;
+    on NCCL only the enqueueing of a stream wait, since the host does not
+    block) and ``wire_bytes`` (bytes its collectives deliver, to itself
+    too: an all_to_all's input once, an all_gather's input once a member
+    of the group; the multiproc mailboxes' count of the same exchange).
+    """
+
+    def __init__(self, topo: StageTopo, bits: int, groups: Dict[str, object],
+                 rank: int, nprocs: int, rows: int, feat: int,
+                 clock: Dict[str, float]):
+        self.topo, self.bits = topo, bits
+        self.rank, self.nprocs = rank, nprocs
+        self.rows, self.feat = rows, feat
+        self.clock = clock
+        self.wire_group = groups[topo.wire_axis]
+        self.shard_group = groups.get(topo.shard_axis)
+        if topo.kind == "grouped":
+            self.s = rows // (topo.wire_chunks * topo.shard_size)
+        # Rows each quantized all_to_all covers: the whole wire buffer of
+        # an a2a stage, the psum-scattered [C*s, F] shard of a grouped one.
+        self._qrows = rows if topo.kind == "a2a" else topo.wire_chunks * self.s
+        self._noise = None
+        self._pending = None
+
+    # -- the transport a LayerProgram drives ---------------------------------
+
+    def post(self, send: torch.Tensor, noise) -> torch.Tensor:
+        self._noise = noise
+        return _CollPost.apply(send, self)
+
+    def collect(self, carrier: torch.Tensor) -> torch.Tensor:
+        return _CollCollect.apply(carrier, self)
+
+    # -- collectives ---------------------------------------------------------
+
+    def _issue(self, fn, out, inp, group, copies: int = 1):
+        """Issue one collective asynchronously; returns (work, out)."""
+        self.clock["wire_bytes"] += copies * inp.numel() * inp.element_size()
+        return fn(out, inp, group=group, async_op=True), out
+
+    def _wait(self, pending) -> torch.Tensor:
+        work, out = pending
+        t0 = time.perf_counter()
+        work.wait()
+        self.clock["wait_s"] += time.perf_counter() - t0
+        return out
+
+    def _a2a(self, inp: torch.Tensor, group):
+        import torch.distributed as dist
+
+        inp = inp.contiguous()
+        return self._issue(dist.all_to_all_single, torch.empty_like(inp), inp, group)
+
+    def _gather(self, inp: torch.Tensor, group, size: int):
+        import torch.distributed as dist
+
+        out = torch.empty((size, *inp.shape), dtype=inp.dtype, device=inp.device)
+        return self._issue(lambda o, i, **kw: dist.all_gather(list(o.unbind(0)), i, **kw),
+                           out, inp.contiguous(), group, copies=size)
+
+    def _uniform(self, backward: bool) -> torch.Tensor:
+        if self._noise is None:
+            raise ValueError("a quantized stage needs stochastic-rounding noise")
+        u = self._noise(backward, (self.nprocs, self._qrows, self.feat))
+        return u[self.rank]
+
+    def _wire_post(self, x: torch.Tensor, backward: bool) -> tuple:
+        """Issue the (quantized) all_to_all of ``x`` [rows, F] over the
+        stage's wire group."""
+        if not self.bits:
+            return (self._a2a(x, self.wire_group),)
+        packed, zero, scale = quant_pack(x.contiguous(), self._uniform(backward).to(x.device),
+                                         self.bits)
+        return (self._a2a(packed, self.wire_group),
+                self._a2a(torch.stack([zero, scale], 1), self.wire_group))
+
+    def _wire_recv(self, pending: tuple) -> torch.Tensor:
+        """Wait for :meth:`_wire_post`'s collectives; the received rows."""
+        if not self.bits:
+            return self._wait(pending[0])
+        words, zs = (self._wait(p) for p in pending)
+        return dequant_unpack(words, zs[:, 0].contiguous(), zs[:, 1].contiguous(),
+                              self.bits, self.feat)
+
+    def _psc_post(self, x: torch.Tensor):
+        """psum_scatter's all_to_all over the node group: node ``w`` gets
+        this rank's ``[C, s, F]`` rows destined for it."""
+        c, w = self.topo.wire_chunks, self.topo.shard_size
+        y = x.reshape(c, w, self.s, self.feat).transpose(0, 1)
+        return self._a2a(y, self.shard_group)
+
+    def _psc_sum(self, pending) -> torch.Tensor:
+        """The W sources' contributions summed in node order: [C*s, F]."""
+        parts = self._wait(pending)
+        acc = parts[0]
+        for r in range(1, parts.shape[0]):
+            acc = acc + parts[r]
+        return acc.reshape(-1, self.feat)
+
+    def _all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """all_gather over the node group: [C*s, F] -> [1, C*W*s, F]."""
+        c, w = self.topo.wire_chunks, self.topo.shard_size
+        full = self._wait(self._gather(shard, self.shard_group, w))
+        return full.reshape(w, c, self.s, self.feat).transpose(0, 1).reshape(
+            1, self.rows, self.feat)
+
+    def _grouped_rest(self, psc, backward: bool) -> torch.Tensor:
+        shard = self._psc_sum(psc)
+        return self._all_gather(self._wire_recv(self._wire_post(shard, backward)))
+
+    # -- the autograd Functions' halves ------------------------------------
+
+    @_timed_wire
+    def h_post(self, send: torch.Tensor) -> None:
+        x = send.detach()[0]
+        if self.topo.kind == "a2a":
+            self._pending = self._wire_post(x, False)
+        else:
+            self._pending = self._psc_post(x)
+
+    @_timed_wire
+    def h_collect(self) -> torch.Tensor:
+        pending, self._pending = self._pending, None
+        if self.topo.kind == "a2a":
+            return self._wire_recv(pending)[None]
+        return self._grouped_rest(pending, False)
+
+    @_timed_wire
+    def h_bwd(self, g: torch.Tensor) -> torch.Tensor:
+        if self.topo.kind == "a2a":
+            return self._wire_recv(self._wire_post(g[0], True))[None]
+        # The all_gather's transpose is a psum_scatter of the cotangent,
+        # then the re-quantized group all_to_all, then the forward
+        # psum_scatter's transpose, an all_gather.
+        return self._grouped_rest(self._psc_post(g[0]), True)
 
 
 class LayerInFlight(NamedTuple):

@@ -31,11 +31,12 @@ schedules, the halo cache) checkpoints into the JAX package's npz format
 epoch number, so a resumed run reproduces the uninterrupted one bit for
 bit.
 
-``exec.mode="multiproc"`` (one process per worker) is
-``repro_torch.launch.multiproc``, which runs this module's pieces at
-P = 1 in each rank. Refused (they raise): ``exec.mode="shard_map"`` (one
-card holds no mesh), ``lower_step`` (not ported yet), and distributed
-GAT, which the JAX package cannot train either (ROADMAP C-ref7).
+``exec.mode="multiproc"`` and ``exec.mode="shard_map"`` (one process per
+worker, over host mailboxes or ``torch.distributed`` collectives) are
+``repro_torch.launch.multiproc`` and ``repro_torch.launch.spmd``, which
+run this module's pieces at P = 1 in each rank. ``lower_step`` records
+one step for the auditor. Refused (it raises): distributed GAT, which
+the JAX package cannot train either (ROADMAP C-ref7).
 """
 
 from __future__ import annotations
@@ -84,12 +85,6 @@ from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_
 # Hierarchical schedules default the slow inter-group wire to Int2 when the
 # base ``bits`` is fp32, as in the JAX package.
 HIER_INTER_BITS_DEFAULT = 2
-
-SHARD_MAP_REFUSED = (
-    "exec.mode='shard_map' needs a mesh of devices, and one card holds none; "
-    "the port's multi-worker modes are 'vmap' (all workers stacked on the "
-    "card) and 'multiproc' (one process per worker, sharing the card through "
-    "host mailboxes); ROADMAP A2 decided to keep refusing shard_map")
 
 GAT_NOT_DISTRIBUTED = (
     "model 'gat' does not train distributed: the JAX package's distributed "
@@ -544,13 +539,14 @@ class DistributedTrainer:
     def __init__(self, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
                  mode: str = "vmap", seed: int = 0, params: Optional[Dict] = None,
                  randomness=None):
-        if mode == "shard_map":
-            raise NotImplementedError(SHARD_MAP_REFUSED)
         if mode != "vmap":
             raise ValueError(
                 f"DistributedTrainer runs the stacked mode 'vmap', not "
-                f"{mode!r}; exec.mode='multiproc' runs through build_session "
-                "(repro_torch.launch.multiproc.MultiprocRuntime)")
+                f"{mode!r}; exec.mode='multiproc' and 'shard_map' run one "
+                "process per worker through build_session "
+                "(repro_torch.launch.multiproc.MultiprocRuntime, "
+                "repro_torch.launch.spmd.ShardMapRuntime): one process's "
+                "object cannot hold the ranks")
         if cfg.model == "gat":
             raise NotImplementedError(GAT_NOT_DISTRIBUTED)
         self.cfg, self.dc, self.wd, self.mode = cfg, dc, wd, mode

@@ -43,8 +43,9 @@ for the peak of live storages. A record keeps the JAX package's keys:
     the port's nearest artifact to an HLO dump.
 
 **The GCN half** (``--gcn``). The JAX package lowers the production
-shard_map trainer against the full 256- (or 512-) device mesh. One card
-holds no mesh (ROADMAP A2), so here the workers run stacked on the device
+shard_map trainer against the full 256- (or 512-) device mesh. The
+port's shard_map is one process per worker (``launch.spmd``), which has
+no single step to record, so here the workers run stacked on the device
 (``exec.mode=vmap``; a ``shard_map`` spec is recorded as ``lowered_as:
 "vmap"``, as ``run.matrix`` does) and the "lowered module" is one recorded
 forward and backward, ``Session.lower()`` (``core.record.LoweredStep``).

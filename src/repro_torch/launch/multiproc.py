@@ -63,6 +63,11 @@ Every op a rank runs repeats bitwise (the kernels, the sort-based
 backward of gathers, the ``coo`` scatter-adds, the rank-ordered sum), so
 a recovered run equals the uninterrupted one.
 
+The control plane (spawning, the store, the command pipes: :class:`_Fleet`)
+and the rank's training step (:class:`_RankBase`) are shared with
+``exec.mode=shard_map`` (``launch.spmd``), whose wire is
+``torch.distributed`` collectives instead of mailboxes.
+
 Fault tolerance (the :class:`MultiprocRuntime` docstring has the
 protocol): per-rank heartbeat words tell dead, hung and failing ranks
 apart; on a failure the parent quiesces the survivors, respawns the lost
@@ -73,7 +78,6 @@ recoveries it aborts cleanly. ``repro_torch.launch.chaos`` drives it.
 
 from __future__ import annotations
 
-import functools
 import multiprocessing as mp
 import os
 import signal
@@ -92,6 +96,7 @@ from repro_torch.checkpoint.ckpt import (
 )
 from repro_torch.core import model as M
 from repro_torch.core.exchange import (
+    _timed_wire,
     DeviceHaloPlan,
     DeviceHierPlan,
     ExchangeSchedule,
@@ -171,18 +176,6 @@ def _transport_kind(e: BaseException) -> Optional[str]:
         if name in s:
             return kind
     return None
-
-
-def _timed(method):
-    """Add a mailbox round's host seconds to its owner's ``clock``."""
-    @functools.wraps(method)
-    def run(self, *args):
-        t0 = time.perf_counter()
-        try:
-            return method(self, *args)
-        finally:
-            self.clock["wire_s"] += time.perf_counter() - t0
-    return run
 
 
 # --------------------------------------------------------------------------
@@ -526,21 +519,21 @@ class _StageExec:
 
     # -- the transports' entry points ---------------------------------------
 
-    @_timed
+    @_timed_wire
     def h_post(self, send: torch.Tensor) -> None:
         if self.topo.kind == "a2a":
             self._a2a_post(self.op_x, send, self.peers, self.chunk_rows, False)
         else:
             self._psc_post(self.op_psc, send)
 
-    @_timed
+    @_timed_wire
     def h_collect(self) -> torch.Tensor:
         if self.topo.kind == "a2a":
             return self._a2a_read(self.op_x, self.peers, self.chunk_rows)[None]
         return self._grouped_pipeline((self.op_psc, self.op_a2a, self.op_ag),
                                       None, False)
 
-    @_timed
+    @_timed_wire
     def h_bwd(self, g: torch.Tensor) -> torch.Tensor:
         if self.topo.kind == "a2a":
             self._a2a_post(self.op_xb, g, self.peers, self.chunk_rows, True)
@@ -605,6 +598,10 @@ def _rank_plan(views: Dict[str, np.ndarray], prefix: str, plan_meta: dict,
     return DeviceHaloPlan(**kw)
 
 
+def _np(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
 def _flat(tree) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
 
@@ -618,28 +615,29 @@ def _unflat(vec: torch.Tensor, like):
     return tree_map(lambda _: next(it), like)
 
 
-class _RankWorker:
+class _RankBase:
     """One rank's training state, built from the manifest and the shared
-    store.
+    store: the rank's slices of the partition arrays on its device, the
+    parameters, AdamW state and halo cache, and one ``LayerProgram`` per
+    (train / eval, layer). The rank is the stacked code at P = 1.
 
-    ``generation`` counts respawns of this rank (0 = the first spawn); a
-    respawned rank attaches the existing segments, so a recovery costs one
-    rank's start-up, not a rebuild. With a ``ckpt`` section in the
-    manifest the rank snapshots its resumable state every ``every`` epochs
-    into its own :class:`CheckpointManager` directory, and the parent's
-    ``restore`` command winds it back to a step every rank holds.
+    The wire is the subclass's: :meth:`_connect` joins the other ranks
+    once the store is mapped, :meth:`_transport` gives each (tag, layer,
+    stage) its ``LayerProgram`` transport, :meth:`_allreduce` sums a
+    vector over the ranks in rank order and :meth:`_counters` reads the
+    wire's seconds and bytes. :class:`_RankWorker` is multiproc's
+    (mailboxes), ``launch.spmd._SpmdRank`` shard_map's (collectives).
     """
 
-    def __init__(self, rank: int, nprocs: int, manifest: dict,
-                 generation: int = 0):
+    COMMANDS = ("epoch", "eval", "summary", "state")
+
+    def __init__(self, rank: int, nprocs: int, manifest: dict):
         from repro_torch.run.spec import RunSpec
 
         self.rank, self.nprocs = rank, nprocs
-        self.generation = generation
-        self._chaos = _chaos_from_env(rank, generation)
         spec = RunSpec.from_dict(manifest["spec"])
         self.spec = spec
-        self.device = resolve_device(manifest["device"])
+        self.device = resolve_device(self._device_name(manifest))
         self.randomness = manifest["randomness"]
         self.dc = spec.schedule.to_dist_config(spec.partition, lr=spec.exec.lr)
         self.cfg = spec.model.to_gcn_config(spec.graph, spec.schedule)
@@ -647,13 +645,12 @@ class _RankWorker:
         self.eval_schedule = self.dc.sync_fp32().schedule()
         meta = manifest["meta"]
         dev = self.device
+        self.clock = {"wire_s": 0.0}  # host seconds in the wire
 
         self.rss_before_attach = rss_bytes()
         self.arena = ShmArena.attach(manifest["store"]["name"],
                                      manifest["store"]["table"])
-        self.mb = Mailboxes.attach(manifest["mailbox"]["name"],
-                                   manifest["mailbox"], rank,
-                                   wait_timeout_s=_WORKER_WAIT_S)
+        self._connect(manifest)
         views = self.arena.views()
         self.rss_after_attach = rss_bytes()
 
@@ -681,26 +678,49 @@ class _RankWorker:
 
         self._init_params = manifest["params"]
         self._reinit()
-        ck = meta.get("ckpt")
-        self.ckpt_every = int(ck["every"]) if ck else 0
-        self.ckpt_mgr = (CheckpointManager(
-            Path(ck["dir"]) / f"rank{rank}", keep=int(ck.get("keep", 3)))
-            if ck else None)
         wire_rows = meta["wire_rows"]
         dims = self.cfg.dims()[: self.cfg.num_layers]
-        self.clock = {"wire_s": 0.0}  # host seconds in mailbox rounds
         self._progs: Dict[str, List[LayerProgram]] = {}
         for tag, sched in (("t", self.schedule), ("e", self.eval_schedule)):
             progs = []
             for l in range(self.cfg.num_layers):
-                execs = [
-                    _StageExec(self.mb, f"{tag}.L{l}.{stage.level}", stage,
-                               sched.topo(stage), rank, nprocs,
-                               wire_rows[stage.level], dims[l], dev, self.clock)
-                    for stage in sched.stages]
+                wires = [self._transport(f"{tag}.L{l}.{stage.level}", stage,
+                                         sched.topo(stage), wire_rows[stage.level],
+                                         dims[l])
+                         for stage in sched.stages]
                 progs.append(LayerProgram(sched, self.wd, self.dc.agg_backend,
-                                          transports=execs))
+                                          transports=wires))
             self._progs[tag] = progs
+
+    # -- the wire, the subclass's ---------------------------------------------
+
+    def _device_name(self, manifest: dict) -> str:
+        return manifest["device"]
+
+    def _connect(self, manifest: dict) -> None:
+        raise NotImplementedError
+
+    def _transport(self, op_base: str, spec: StageSpec, topo: StageTopo,
+                   rows: int, feat: int):
+        raise NotImplementedError
+
+    def _allreduce(self, op: str, vec: torch.Tensor) -> torch.Tensor:
+        """``vec`` (fp32, 1-D) summed over all ranks in rank order, from
+        zeros, on this rank's device: every rank gets bitwise the same
+        result (no broadcast needed)."""
+        raise NotImplementedError
+
+    def _counters(self) -> Dict[str, float]:
+        """The wire's running ``wait_s``, ``wire_s`` and ``wire_bytes``."""
+        raise NotImplementedError
+
+    def _before_epoch(self) -> None:
+        pass
+
+    def _after_epoch(self) -> None:
+        pass
+
+    # -- state ---------------------------------------------------------------
 
     def _reinit(self) -> None:
         """Parameters (the manifest's, else drawn from ``exec.seed`` as the
@@ -720,21 +740,6 @@ class _RankWorker:
                                 for r in self.schedule.cache_rows(self.wd))
                           for f in dims]
         self.epoch = 0
-
-    # -- collectives outside autodiff --------------------------------------
-
-    @_timed
-    def _allreduce(self, op: str, vec: np.ndarray) -> np.ndarray:
-        """Sum ``vec`` over all ranks, in rank order, so every rank gets
-        bitwise the same result (no broadcast needed)."""
-        v = np.ascontiguousarray(vec, dtype=np.float32)
-        for d in range(self.nprocs):
-            self.mb.post(op, d, v)
-        out = np.zeros_like(v)
-        for s in range(self.nprocs):
-            out += self.mb.collect(op, s).view(np.float32)
-        self.mb.complete(op)
-        return out
 
     # -- forward / step ------------------------------------------------------
 
@@ -769,6 +774,159 @@ class _RankWorker:
                            agg_fn, dropout_keep=keep)
         return logits, new_cache
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def command(self, msg: dict) -> dict:
+        """Run one of :attr:`COMMANDS`; returns the reply's fields."""
+        cmd = msg["cmd"]
+        if cmd == "epoch":
+            return self.train_epoch()
+        if cmd == "eval":
+            return self.evaluate()
+        if cmd == "state":
+            return self.state()
+        return self.summary()
+
+    def train_epoch(self) -> dict:
+        self._before_epoch()
+        t0 = time.perf_counter()
+        launched0 = launch_counts()
+        c0 = self._counters()
+        cfg, wd, rnd, dev, epoch = self.cfg, self.wd, self.randomness, self.device, self.epoch
+        if cfg.label_prop:
+            sel = self._stacked(lambda s: rnd.lp_select(epoch, s, cfg.lp_rate, dev),
+                                tuple(wd.train_mask.shape))
+            prop_mask, loss_mask = M.lp_masks(sel, wd.train_mask)
+        else:
+            prop_mask, loss_mask = torch.zeros_like(wd.train_mask), wd.train_mask
+
+        # The global loss count before the backward, so each rank's
+        # gradient is its share of the global mean loss's.
+        cnt_local = loss_mask.to(torch.float32).sum().reshape(1)
+        gcnt = float(self._allreduce("t.cnt", cnt_local)[0])
+        denom = torch.tensor(max(gcnt, 1.0), device=dev)
+        params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
+        logits, cache = self._forward(params, prop_mask, True, "t", self.cache, epoch)
+        ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
+        grads = _grads(ls.sum() / denom, params)
+
+        vec = torch.cat([_flat(grads).detach(),
+                         torch.stack([ls.sum(), correct.sum(), cnt.sum()]).detach()
+                         .to(torch.float32)])
+        gsum = self._allreduce("t.grads", vec)
+        host = gsum.cpu().numpy()
+        grad_norm = float(np.sqrt(np.square(host[:-3], dtype=np.float64).sum()))
+        grads = _unflat(gsum[:-3], self.params)
+        gls, gcorrect, gcnt2 = (float(host[-3]), float(host[-2]), float(host[-1]))
+        self.params, self.opt_state = adamw_update(grads, self.opt_state, self.params,
+                                                   self.dc.lr)
+        if self.schedule.uses_cache:
+            self.cache = [tuple(c.detach() for c in layer) for layer in cache]
+        self.epoch += 1
+        self._sync()
+        self._after_epoch()
+        c1, now = self._counters(), launch_counts()
+        return {"loss": gls / max(gcnt2, 1.0),
+                "train_acc": gcorrect / max(gcnt2, 1.0),
+                "epoch": self.epoch,
+                "epoch_s": time.perf_counter() - t0,
+                **{k: c1[k] - c0[k] for k in ("wait_s", "wire_s", "wire_bytes")},
+                "grad_norm": grad_norm,
+                "launches": {k: now[k] - launched0[k] for k in now}}
+
+    def evaluate(self) -> dict:
+        launched0 = launch_counts()
+        wd = self.wd
+        prop = wd.train_mask if self.cfg.label_prop else torch.zeros_like(wd.train_mask)
+        with torch.no_grad():
+            logits, _ = self._forward(self.params, prop, False, "e", None, None)
+            _, correct, cnt = M.loss_and_metrics(logits, wd.labels, wd.eval_mask)
+            g = self._allreduce("e.metrics", torch.stack(
+                [correct.sum(), cnt.sum()]).to(torch.float32)).cpu()
+        now = launch_counts()
+        return {"eval_acc": float(g[0]) / max(float(g[1]), 1.0),
+                "launches": {k: now[k] - launched0[k] for k in now}}
+
+    def state(self) -> dict:
+        """This rank's parameters, AdamW state (step, mu, nu) and halo cache
+        (``[rows, F]`` per delayed stage) as numpy, and its epoch."""
+        out = {"params": _np(self.params),
+               "opt_state": (self.opt_state.step, _np(self.opt_state.mu),
+                             _np(self.opt_state.nu)),
+               "epoch": self.epoch}
+        if self.schedule.uses_cache:
+            out["cache"] = [[c[0].cpu().numpy() for c in layer] for layer in self.cache]
+        return out
+
+    def summary(self) -> dict:
+        out = {"rank": self.rank,
+               "rss_before_attach": self.rss_before_attach,
+               "rss_after_attach": self.rss_after_attach,
+               "rss_after_slices": self.rss_after_slices,
+               "rss_now": rss_bytes(),
+               **self._counters()}
+        if self.device.type == "cuda":
+            out["device_bytes"] = torch.cuda.memory_allocated(self.device)
+            out["device_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+            out["device_reserved_bytes"] = torch.cuda.memory_reserved(self.device)
+        return out
+
+    def close(self) -> None:
+        self.arena.close()
+
+
+class _RankWorker(_RankBase):
+    """A multiproc rank: the wire is the shared-memory mailboxes.
+
+    ``generation`` counts respawns of this rank (0 = the first spawn); a
+    respawned rank attaches the existing segments, so a recovery costs one
+    rank's start-up, not a rebuild. With a ``ckpt`` section in the
+    manifest the rank snapshots its resumable state every ``every`` epochs
+    into its own :class:`CheckpointManager` directory, and the parent's
+    ``restore`` command winds it back to a step every rank holds.
+    """
+
+    COMMANDS = _RankBase.COMMANDS + ("restore",)
+
+    def __init__(self, rank: int, nprocs: int, manifest: dict,
+                 generation: int = 0):
+        self.generation = generation
+        self._chaos = _chaos_from_env(rank, generation)
+        super().__init__(rank, nprocs, manifest)
+        ck = manifest["meta"].get("ckpt")
+        self.ckpt_every = int(ck["every"]) if ck else 0
+        self.ckpt_mgr = (CheckpointManager(
+            Path(ck["dir"]) / f"rank{rank}", keep=int(ck.get("keep", 3)))
+            if ck else None)
+
+    def _connect(self, manifest: dict) -> None:
+        self.mb = Mailboxes.attach(manifest["mailbox"]["name"],
+                                   manifest["mailbox"], self.rank,
+                                   wait_timeout_s=_WORKER_WAIT_S)
+
+    def _transport(self, op_base, spec, topo, rows, feat):
+        return _StageExec(self.mb, op_base, spec, topo, self.rank, self.nprocs,
+                          rows, feat, self.device, self.clock)
+
+    def _counters(self) -> Dict[str, float]:
+        return {"wait_s": self.mb.wait_s, "wire_s": self.clock["wire_s"],
+                "wire_bytes": self.mb.bytes_written}
+
+    # -- collectives outside autodiff --------------------------------------
+
+    @_timed_wire
+    def _allreduce(self, op: str, vec: torch.Tensor) -> torch.Tensor:
+        v = np.ascontiguousarray(vec.detach().cpu().numpy(), dtype=np.float32)
+        for d in range(self.nprocs):
+            self.mb.post(op, d, v)
+        out = np.zeros_like(v)
+        for s in range(self.nprocs):
+            out += self.mb.collect(op, s).view(np.float32)
+        self.mb.complete(op)
+        return torch.from_numpy(out).to(self.device)
+
     def _maybe_chaos(self) -> None:
         """Fire a pending fault injected through the environment."""
         if self._chaos is None or self.epoch != self._chaos["epoch"]:
@@ -780,62 +938,21 @@ class _RankWorker:
             # rank's heartbeat freezes while the process stays alive.
             time.sleep(_CHAOS_STALL_S)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def train_epoch(self) -> dict:
+    def _before_epoch(self) -> None:
         self._maybe_chaos()
-        t0 = time.perf_counter()
-        launched0 = launch_counts()
-        wait0, bytes0, wire0 = self.mb.wait_s, self.mb.bytes_written, self.clock["wire_s"]
-        cfg, wd, rnd, dev, epoch = self.cfg, self.wd, self.randomness, self.device, self.epoch
-        if cfg.label_prop:
-            sel = self._stacked(lambda s: rnd.lp_select(epoch, s, cfg.lp_rate, dev),
-                                tuple(wd.train_mask.shape))
-            prop_mask, loss_mask = M.lp_masks(sel, wd.train_mask)
-        else:
-            prop_mask, loss_mask = torch.zeros_like(wd.train_mask), wd.train_mask
 
-        # The global loss count before the backward, so each rank's
-        # gradient is its share of the global mean loss's.
-        cnt_local = float(loss_mask.to(torch.float32).sum())
-        gcnt = float(self._allreduce("t.cnt", np.array([cnt_local], np.float32))[0])
-        denom = torch.tensor(max(gcnt, 1.0), device=dev)
-        params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
-        logits, cache = self._forward(params, prop_mask, True, "t", self.cache, epoch)
-        ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
-        grads = _grads(ls.sum() / denom, params)
-
-        vec = np.concatenate([
-            _flat(grads).detach().cpu().numpy(),
-            torch.stack([ls.sum(), correct.sum(), cnt.sum()]).detach().cpu().numpy()])
-        gsum = self._allreduce("t.grads", vec)
-        grad_norm = float(np.sqrt(np.square(gsum[:-3], dtype=np.float64).sum()))
-        grads = _unflat(torch.from_numpy(gsum[:-3]).to(dev), self.params)
-        gls, gcorrect, gcnt2 = (float(gsum[-3]), float(gsum[-2]), float(gsum[-1]))
-        self.params, self.opt_state = adamw_update(grads, self.opt_state, self.params,
-                                                   self.dc.lr)
-        if self.schedule.uses_cache:
-            self.cache = [tuple(c.detach() for c in layer) for layer in cache]
-        self.epoch += 1
-        self._sync()
+    def _after_epoch(self) -> None:
         self.mb.heartbeat()  # the optimizer's tail has no mailbox ops
         if (self.ckpt_mgr is not None and self.ckpt_every
                 and self.epoch % self.ckpt_every == 0):
             self.ckpt_mgr.save(self._ckpt_state(), step=self.epoch,
                                meta={"epoch": self.epoch, "rank": self.rank})
             self.mb.heartbeat()
-        now = launch_counts()
-        return {"loss": gls / max(gcnt2, 1.0),
-                "train_acc": gcorrect / max(gcnt2, 1.0),
-                "epoch": self.epoch,
-                "epoch_s": time.perf_counter() - t0,
-                "wait_s": self.mb.wait_s - wait0,
-                "wire_s": self.clock["wire_s"] - wire0,
-                "wire_bytes": self.mb.bytes_written - bytes0,
-                "grad_norm": grad_norm,
-                "launches": {k: now[k] - launched0[k] for k in now}}
+
+    def command(self, msg: dict) -> dict:
+        if msg["cmd"] == "restore":
+            return self.restore(msg.get("step"))
+        return super().command(msg)
 
     # -- checkpoint / restore --------------------------------------------------
 
@@ -869,37 +986,9 @@ class _RankWorker:
             self._reinit()
         return {"epoch": self.epoch}
 
-    def evaluate(self) -> dict:
-        launched0 = launch_counts()
-        wd = self.wd
-        prop = wd.train_mask if self.cfg.label_prop else torch.zeros_like(wd.train_mask)
-        with torch.no_grad():
-            logits, _ = self._forward(self.params, prop, False, "e", None, None)
-            _, correct, cnt = M.loss_and_metrics(logits, wd.labels, wd.eval_mask)
-        g = self._allreduce("e.metrics", np.array(
-            [float(correct.sum()), float(cnt.sum())], np.float32))
-        now = launch_counts()
-        return {"eval_acc": float(g[0]) / max(float(g[1]), 1.0),
-                "launches": {k: now[k] - launched0[k] for k in now}}
-
-    def summary(self) -> dict:
-        out = {"rank": self.rank,
-               "rss_before_attach": self.rss_before_attach,
-               "rss_after_attach": self.rss_after_attach,
-               "rss_after_slices": self.rss_after_slices,
-               "rss_now": rss_bytes(),
-               "wait_s": self.mb.wait_s,
-               "wire_s": self.clock["wire_s"],
-               "wire_bytes": self.mb.bytes_written}
-        if self.device.type == "cuda":
-            out["device_bytes"] = torch.cuda.memory_allocated(self.device)
-            out["device_peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
-            out["device_reserved_bytes"] = torch.cuda.memory_reserved(self.device)
-        return out
-
     def close(self) -> None:
         self.mb.close()
-        self.arena.close()
+        super().close()
 
 
 def _safe_send(conn, msg: dict) -> bool:
@@ -911,8 +1000,10 @@ def _safe_send(conn, msg: dict) -> bool:
 
 
 def _worker_entry(rank: int, nprocs: int, manifest: dict, conn,
-                  generation: int = 0) -> None:
+                  generation: int = 0, worker_cls=None) -> None:
     """A spawned rank: pin, attach the shared store, serve commands.
+    ``worker_cls`` builds the rank (:class:`_RankWorker` by default, with
+    its ``generation``; a class of another mode takes no generation).
 
     A command's exception is classified (``_transport_kind``) instead of
     ending the rank: a RECOVER flag means the parent runs a recovery, so
@@ -924,7 +1015,8 @@ def _worker_entry(rank: int, nprocs: int, manifest: dict, conn,
     worker = None
     try:
         _pin(rank, nprocs)
-        worker = _RankWorker(rank, nprocs, manifest, generation=generation)
+        worker = (_RankWorker(rank, nprocs, manifest, generation=generation)
+                  if worker_cls is None else worker_cls(rank, nprocs, manifest))
         conn.send({"status": "ok", **worker.summary()})
         while True:
             try:
@@ -935,18 +1027,11 @@ def _worker_entry(rank: int, nprocs: int, manifest: dict, conn,
             try:
                 if cmd == "stop":
                     break
-                if cmd == "epoch":
-                    rep = {"status": "ok", **worker.train_epoch()}
-                elif cmd == "eval":
-                    rep = {"status": "ok", **worker.evaluate()}
-                elif cmd == "summary":
-                    rep = {"status": "ok", **worker.summary()}
-                elif cmd == "restore":
-                    rep = {"status": "ok", **worker.restore(msg.get("step"))}
-                else:
+                if cmd not in worker.COMMANDS:
                     _safe_send(conn, {"status": "error",
                                       "error": f"unknown command {cmd!r}"})
                     break
+                rep = {"status": "ok", **worker.command(msg)}
                 if not _safe_send(conn, rep):
                     break
             except Exception as e:  # noqa: BLE001 — classify, don't die
@@ -1038,7 +1123,209 @@ class _WorkerFailure(Exception):
         super().__init__(f"ranks {self.ranks} {kind}")
 
 
-class MultiprocRuntime:
+class _Fleet:
+    """The parent's control plane over one spawned process per rank, shared
+    by :class:`MultiprocRuntime` and ``launch.spmd.ShardMapRuntime``:
+    spawning (the ``spawn`` start method, the thread env partitioned across
+    the ranks), the command pipes, gathering one reply per rank while
+    telling dead, hung and failing ranks apart, and the teardown of the
+    processes and the shared-memory segments. The subclass sets the state
+    :meth:`_init_fleet` names, builds ``_manifest`` and says which rank
+    class its processes run (``_worker_cls``; None is multiproc's)."""
+
+    mode = "multiproc"
+    _worker_cls = None
+
+    def _init_fleet(self) -> None:
+        self._started = False
+        self._procs: List = []
+        self._conns: List = []
+        self._arena: Optional[ShmArena] = None
+        self._mb: Optional[Mailboxes] = None
+        self._generation = 0
+        self._manifest: Optional[dict] = None
+        self._ctx = None
+        self._signals_installed = False
+        # Ranks that completed a supervised command since their (re)spawn:
+        # only they get the tight heartbeat_s hang deadline.
+        self._warm_ranks: set = set()
+
+    def _spawn_rank(self, r: int) -> None:
+        """Spawn (or respawn) one rank against the published segments, with
+        the thread env partitioned across the ranks."""
+        threads = max(1, (os.cpu_count() or 1) // self.nprocs)
+        saved = {k: os.environ.get(k) for k in _THREAD_ENV}
+        for k in _THREAD_ENV:
+            os.environ[k] = str(threads)
+        try:
+            parent_conn, child_conn = self._ctx.Pipe()
+            p = self._ctx.Process(
+                target=_worker_entry,
+                args=(r, self.nprocs, self._manifest, child_conn, self._generation,
+                      self._worker_cls),
+                daemon=True)
+            p.start()
+            child_conn.close()
+            self._procs[r] = p
+            self._conns[r] = parent_conn
+            self._warm_ranks.discard(r)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def _install_signal_cleanup(self) -> None:
+        """SIGINT and SIGTERM stop the fleet and unlink both segments
+        before the default disposition runs (atexit alone never runs on
+        SIGTERM); chained to any handler installed before."""
+        if self._signals_installed:
+            return
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            prev = signal.getsignal(sig)
+
+            def _handler(signum, frame, prev=prev):
+                self.close(force=True)
+                if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+                    prev(signum, frame)
+                else:
+                    signal.signal(signum, signal.SIG_DFL)
+                    os.kill(os.getpid(), signum)
+
+            try:
+                signal.signal(sig, _handler)
+            except ValueError:
+                return  # not the main thread; atexit still covers the segments
+        self._signals_installed = True
+
+    def _abort(self, msg: str) -> None:
+        if self._mb is not None:
+            self._mb.abort()
+        self.close(force=True)
+        raise RuntimeError(f"{self.mode} run aborted: {msg}")
+
+    def _gather(self, timeout: float, what: str,
+                ranks: Optional[Sequence[int]] = None, hb_s: float = 0.0,
+                ok_status: Tuple[str, ...] = ("ok",),
+                fail_fast: bool = False) -> Dict[int, dict]:
+        """Collect one reply per rank; raise :class:`_WorkerFailure` as soon
+        as an awaited rank proves dead, hung (heartbeat frozen past
+        ``hb_s``; 0 disables) or failing (a reply outside ``ok_status``:
+        after every reply is in, or with ``fail_fast`` at once, when the
+        other ranks may be blocked on the failed one for good)."""
+        ranks = list(range(self.nprocs)) if ranks is None else list(ranks)
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        replies: Dict[int, dict] = {}
+        pending = set(ranks)
+        hb_last: Dict[int, Tuple[int, float]] = {}
+        if hb_s > 0 and self._mb is not None:
+            hbs = self._mb.heartbeats()
+            hb_last = {r: (hbs[r], t0) for r in pending if r < len(hbs)}
+
+        def fail(rs, kind):
+            raise _WorkerFailure(rs, kind, pending=pending,
+                                 detect_s=time.monotonic() - t0)
+
+        while pending:
+            for r in sorted(pending):
+                try:
+                    if self._conns[r] is not None and self._conns[r].poll(0.05):
+                        replies[r] = self._conns[r].recv()
+                        pending.discard(r)
+                        if fail_fast and replies[r].get("status") not in ok_status:
+                            raise _WorkerFailure(
+                                [r], "failing", pending=pending,
+                                detect_s=time.monotonic() - t0,
+                                errors={r: str(replies[r].get("error", "no detail"))})
+                except (EOFError, OSError):
+                    fail([r], "dead")
+            dead = [r for r in pending
+                    if self._procs[r] is None or not self._procs[r].is_alive()]
+            if dead:
+                fail(dead, "dead")
+            if hb_last:
+                now = time.monotonic()
+                hbs = self._mb.heartbeats()
+                hung = []
+                for r in sorted(pending & set(hb_last)):
+                    v, t = hb_last[r]
+                    limit = hb_s if r in self._warm_ranks else max(hb_s, _COLD_GRACE_S)
+                    if hbs[r] != v:
+                        hb_last[r] = (hbs[r], now)
+                    elif now - t > limit:
+                        hung.append(r)
+                if hung:
+                    fail(hung, "hung")
+            if time.monotonic() > deadline:
+                fail(sorted(pending), "hung")
+        bad = [r for r in ranks if replies[r].get("status") not in ok_status]
+        if bad:
+            raise _WorkerFailure(
+                bad, "failing", detect_s=time.monotonic() - t0,
+                errors={r: str(replies[r].get("error", "no detail")) for r in bad})
+        return replies
+
+    def _send(self, msg: dict, what: str, ranks: Sequence[int]) -> None:
+        sent: List[int] = []
+        for r in ranks:
+            try:
+                self._conns[r].send(msg)
+            except (BrokenPipeError, OSError, AttributeError):
+                raise _WorkerFailure([r], "dead", pending=sent)
+            sent.append(r)
+
+    def close(self, force: bool = False) -> None:
+        if self._conns and not force:
+            for c in self._conns:
+                if c is None:
+                    continue
+                try:
+                    c.send({"cmd": "stop"})
+                except (BrokenPipeError, OSError, ValueError):
+                    pass
+        for p in self._procs:
+            if p is not None:
+                p.join(timeout=2.0 if force else 15.0)
+        for p in self._procs:
+            if p is not None and p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+        for c in self._conns:
+            if c is None:
+                continue
+            try:
+                c.close()
+            except OSError:
+                pass
+        self._procs, self._conns = [], []
+        for seg in (self._mb, self._arena):
+            if seg is not None:
+                seg.close()
+        self._mb = self._arena = None
+        self._started = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def fit(self, epochs: int, log_every: int = 0) -> List[Dict]:
+        history = []
+        # A recovery winds self.epoch back to the restored checkpoint, and
+        # the epochs trained again must still end the run at ``epochs``.
+        while self.epoch < epochs:
+            m = self.train_epoch()
+            if log_every and (self.epoch % log_every == 0 or self.epoch == epochs):
+                m["eval_acc"] = self.evaluate()
+                m["epoch"] = self.epoch
+                history.append(m)
+        return history
+
+
+class MultiprocRuntime(_Fleet):
     """P processes over one shared graph store, with a fault-tolerant
     supervisor: the trainer-shaped runtime behind ``exec.mode="multiproc"``.
 
@@ -1100,25 +1387,14 @@ class MultiprocRuntime:
             self.schedule, self._eval_schedule, self.nprocs,
             self.cfg.num_layers, feat_dims, self._meta["wire_rows"], nparams)
         self._meta.update(nparams=nparams, feat_dims=list(feat_dims))
-        self._started = False
-        self._procs: List = []
-        self._conns: List = []
-        self._arena: Optional[ShmArena] = None
-        self._mb: Optional[Mailboxes] = None
+        self._init_fleet()
         self.ready_stats: List[dict] = []
         self.eval_launches: List[dict] = []  # per rank, of the last evaluate
         # Supervision state
         self.restarts = 0
         self.recovery_events: List[dict] = []
         self._recovering = False
-        self._generation = 0
         self._ckpt: Optional[dict] = None
-        self._manifest: Optional[dict] = None
-        self._ctx = None
-        self._signals_installed = False
-        # Ranks that completed a supervised command since their (re)spawn:
-        # only they get the tight heartbeat_s hang deadline.
-        self._warm_ranks: set = set()
 
     # -- checkpoint configuration ------------------------------------------
 
@@ -1165,54 +1441,6 @@ class MultiprocRuntime:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _spawn_rank(self, r: int) -> None:
-        """Spawn (or respawn) one rank against the published segments, with
-        the thread env partitioned across the ranks."""
-        threads = max(1, (os.cpu_count() or 1) // self.nprocs)
-        saved = {k: os.environ.get(k) for k in _THREAD_ENV}
-        for k in _THREAD_ENV:
-            os.environ[k] = str(threads)
-        try:
-            parent_conn, child_conn = self._ctx.Pipe()
-            p = self._ctx.Process(
-                target=_worker_entry,
-                args=(r, self.nprocs, self._manifest, child_conn, self._generation),
-                daemon=True)
-            p.start()
-            child_conn.close()
-            self._procs[r] = p
-            self._conns[r] = parent_conn
-            self._warm_ranks.discard(r)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-
-    def _install_signal_cleanup(self) -> None:
-        """SIGINT and SIGTERM stop the fleet and unlink both segments
-        before the default disposition runs (atexit alone never runs on
-        SIGTERM); chained to any handler installed before."""
-        if self._signals_installed:
-            return
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            prev = signal.getsignal(sig)
-
-            def _handler(signum, frame, prev=prev):
-                self.close(force=True)
-                if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
-                    prev(signum, frame)
-                else:
-                    signal.signal(signum, signal.SIG_DFL)
-                    os.kill(os.getpid(), signum)
-
-            try:
-                signal.signal(sig, _handler)
-            except ValueError:
-                return  # not the main thread; atexit still covers the segments
-        self._signals_installed = True
-
     def _ensure_started(self) -> None:
         if self._started:
             return
@@ -1242,76 +1470,7 @@ class MultiprocRuntime:
                         + "".join(f"\n  rank {r}: {e}" for r, e in f.errors.items()))
         self.ready_stats = [reps[r] for r in range(self.nprocs)]
 
-    def _abort(self, msg: str) -> None:
-        if self._mb is not None:
-            self._mb.abort()
-        self.close(force=True)
-        raise RuntimeError(f"multiproc run aborted: {msg}")
-
     # -- detection and recovery ------------------------------------------------
-
-    def _gather(self, timeout: float, what: str,
-                ranks: Optional[Sequence[int]] = None, hb_s: float = 0.0,
-                ok_status: Tuple[str, ...] = ("ok",)) -> Dict[int, dict]:
-        """Collect one reply per rank; raise :class:`_WorkerFailure` as soon
-        as an awaited rank proves dead, hung (heartbeat frozen past
-        ``hb_s``; 0 disables) or failing (a reply outside ``ok_status``)."""
-        ranks = list(range(self.nprocs)) if ranks is None else list(ranks)
-        t0 = time.monotonic()
-        deadline = t0 + timeout
-        replies: Dict[int, dict] = {}
-        pending = set(ranks)
-        hb_last: Dict[int, Tuple[int, float]] = {}
-        if hb_s > 0 and self._mb is not None:
-            hbs = self._mb.heartbeats()
-            hb_last = {r: (hbs[r], t0) for r in pending if r < len(hbs)}
-
-        def fail(rs, kind):
-            raise _WorkerFailure(rs, kind, pending=pending,
-                                 detect_s=time.monotonic() - t0)
-
-        while pending:
-            for r in sorted(pending):
-                try:
-                    if self._conns[r] is not None and self._conns[r].poll(0.05):
-                        replies[r] = self._conns[r].recv()
-                        pending.discard(r)
-                except (EOFError, OSError):
-                    fail([r], "dead")
-            dead = [r for r in pending
-                    if self._procs[r] is None or not self._procs[r].is_alive()]
-            if dead:
-                fail(dead, "dead")
-            if hb_last:
-                now = time.monotonic()
-                hbs = self._mb.heartbeats()
-                hung = []
-                for r in sorted(pending & set(hb_last)):
-                    v, t = hb_last[r]
-                    limit = hb_s if r in self._warm_ranks else max(hb_s, _COLD_GRACE_S)
-                    if hbs[r] != v:
-                        hb_last[r] = (hbs[r], now)
-                    elif now - t > limit:
-                        hung.append(r)
-                if hung:
-                    fail(hung, "hung")
-            if time.monotonic() > deadline:
-                fail(sorted(pending), "hung")
-        bad = [r for r in ranks if replies[r].get("status") not in ok_status]
-        if bad:
-            raise _WorkerFailure(
-                bad, "failing", detect_s=time.monotonic() - t0,
-                errors={r: str(replies[r].get("error", "no detail")) for r in bad})
-        return replies
-
-    def _send(self, msg: dict, what: str, ranks: Sequence[int]) -> None:
-        sent: List[int] = []
-        for r in ranks:
-            try:
-                self._conns[r].send(msg)
-            except (BrokenPipeError, OSError, AttributeError):
-                raise _WorkerFailure([r], "dead", pending=sent)
-            sent.append(r)
 
     def _command(self, msg: dict, what: str, timeout: float = _PARENT_WAIT_S,
                  supervised: bool = False) -> List[dict]:
@@ -1413,42 +1572,6 @@ class MultiprocRuntime:
         finally:
             self._recovering = False
 
-    def close(self, force: bool = False) -> None:
-        if self._conns and not force:
-            for c in self._conns:
-                if c is None:
-                    continue
-                try:
-                    c.send({"cmd": "stop"})
-                except (BrokenPipeError, OSError, ValueError):
-                    pass
-        for p in self._procs:
-            if p is not None:
-                p.join(timeout=2.0 if force else 15.0)
-        for p in self._procs:
-            if p is not None and p.is_alive():
-                p.terminate()
-                p.join(timeout=5.0)
-        for c in self._conns:
-            if c is None:
-                continue
-            try:
-                c.close()
-            except OSError:
-                pass
-        self._procs, self._conns = [], []
-        for seg in (self._mb, self._arena):
-            if seg is not None:
-                seg.close()
-        self._mb = self._arena = None
-        self._started = False
-
-    def __enter__(self) -> "MultiprocRuntime":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
-
     # -- trainer-shaped interface -------------------------------------------
 
     def train_epoch(self) -> Dict[str, float]:
@@ -1472,18 +1595,6 @@ class MultiprocRuntime:
         reps = self._command({"cmd": "eval"}, "evaluate", supervised=True)
         self.eval_launches = [r["launches"] for r in reps]
         return float(reps[0]["eval_acc"])
-
-    def fit(self, epochs: int, log_every: int = 0) -> List[Dict]:
-        history = []
-        # A recovery winds self.epoch back to the restored checkpoint, and
-        # the epochs trained again must still end the run at ``epochs``.
-        while self.epoch < epochs:
-            m = self.train_epoch()
-            if log_every and (self.epoch % log_every == 0 or self.epoch == epochs):
-                m["eval_acc"] = self.evaluate()
-                m["epoch"] = self.epoch
-                history.append(m)
-        return history
 
     def summary(self) -> dict:
         out = {"mode": "multiproc", "nprocs": self.nprocs, "device": self.device,

@@ -13,9 +13,11 @@ Otherwise (``--gcn``, or no ``--arch``): a
 :class:`repro_torch.run.RunSpec` (``--spec file.json`` + ``--set
 section.field=value``; without ``--spec``, ``configs/train_products_paper``)
 is lowered by ``build_session`` onto ``--device``, with all workers
-stacked on that device (``exec.mode=vmap``) or one process per worker
-sharing it through host mailboxes (``exec.mode=multiproc``), and trained
-for ``exec.epochs`` epochs. The JAX launcher's explicit flags
+stacked on that device (``exec.mode=vmap``), one process per worker
+sharing it through host mailboxes (``exec.mode=multiproc``), or one
+process per worker over ``torch.distributed`` collectives
+(``exec.mode=shard_map``: NCCL with one card a rank, gloo on the CPU),
+and trained for ``exec.epochs`` epochs. The JAX launcher's explicit flags
 (``--nparts``, ``--bits``, ``--inter-cd``, ...) are accepted as aliases
 onto the same spec paths (``run.cli.LEGACY_ALIASES``; ``--set`` wins over
 them), as are ``--save-spec`` and ``--print-spec``; ``--set
@@ -39,6 +41,7 @@ Examples:
   python -m repro_torch.launch.train --set exec.epochs=4 --ckpt-dir runs/products
   python -m repro_torch.launch.train --set exec.epochs=8 --ckpt-dir runs/products --resume
   python -m repro_torch.launch.train --set exec.mode=multiproc --set exec.epochs=4
+  python -m repro_torch.launch.train --spec specs/shard_map.json --device cpu
   python -m repro_torch.launch.train --gcn --nparts 8 --groups 2 --inter-bits 2 --epochs 30
   python -m repro_torch.launch.train --set exec.auto=build/tuned.json
 """
@@ -178,12 +181,14 @@ def main(argv=None) -> int:
     spec = spec_from_args(args, base=train_products_paper())
     print(f"spec: {spec.describe()}")
     session = build_session(spec, device=args.device)
-    multiproc = spec.exec.mode == "multiproc"
+    mode, tr = spec.exec.mode, session.trainer
     g, s = session.graph, session.comm_stats()
+    where = {"multiproc": f"in {spec.partition.nparts} processes on {tr.device}",
+             "shard_map": (f"in {spec.partition.nparts} processes over "
+                           f"{getattr(tr, 'backend', '')} on {tr.device}"),
+             }.get(mode, f"stacked on {tr.device}")
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
-          f"{spec.graph.classes} classes; {spec.partition.nparts} workers "
-          + (f"in {spec.partition.nparts} processes on {session.trainer.device}"
-             if multiproc else f"stacked on {session.trainer.device}"))
+          f"{spec.graph.classes} classes; {spec.partition.nparts} workers {where}")
     print(f"partition comm volumes: vanilla={s.vanilla} pre={s.pre} "
           f"post={s.post} hybrid={s.hybrid} (selected={s.selected})")
     p = session.partition_stats()
@@ -203,10 +208,10 @@ def main(argv=None) -> int:
         epochs = spec.exec.epochs
         print(f"trained {epochs} epochs in {dt:.1f}s "
               f"({dt / max(epochs, 1) * 1e3:.1f} ms/epoch)")
-        if multiproc:
-            smry = session.trainer.summary()
+        if mode in ("multiproc", "shard_map"):
+            smry = tr.summary()
             rss = [r["rss_after_slices"] for r in smry.get("ranks", [])]
-            print(f"multiproc: {smry['nprocs']} procs, shared store "
+            print(f"{mode}: {smry['nprocs']} procs, shared store "
                   f"{smry['store_bytes'] / 1e6:.1f} MB (one copy), "
                   f"rank RSS {[round(r / 1e6, 1) for r in rss]} MB")
     finally:

@@ -10,8 +10,8 @@ runs the plain PyTorch path):
 * a stacked spec: ``build_session(spec).lower()`` — partition, plans,
   trainer, and one recorded forward and backward on the device;
 * a ``shard_map`` spec: the same through its stacked variant
-  (``exec.mode=vmap``; recorded as ``lowered_as``), since the port keeps
-  refusing ``shard_map``;
+  (``exec.mode=vmap``; recorded as ``lowered_as``), since its own run is
+  one process per worker with no single recorded step;
 * a multiproc spec: the shared store and mailbox accounting
   (``dry_plan``), no processes;
 * a serving spec: ``build_server`` and a burst of 4 requests, the served

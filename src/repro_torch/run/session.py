@@ -19,15 +19,18 @@ swaps its winner's partition and schedule into the spec.
 ``exec.mode=multiproc`` runs one OS process per partition instead
 (``repro_torch.launch.multiproc.MultiprocRuntime``): the host arrays are
 its shared store, the parent lifts nothing to the device, and each rank
-moves its own slice there. ``Session.close()`` stops the fleet.
+moves its own slice there. ``exec.mode=shard_map`` does the same with
+the exchange and the gradient sum over ``torch.distributed`` collectives
+between the ranks' devices (``repro_torch.launch.spmd.ShardMapRuntime``;
+NCCL with one rank per card, gloo on the CPU, or gloo on one card when
+the caller passes ``backend="gloo"``). ``Session.close()`` stops the
+fleet.
 
 ``fit(ckpt_dir=...)`` snapshots the run every ``exec.ckpt_every`` epochs
 into the JAX package's checkpoint format (per rank under multiproc, whose
-supervisor also restores from there after a fault), and
+supervisor also restores from there after a fault; under shard_map rank
+0's replicated state and every rank's halo cache in one file), and
 ``fit(resume=True)`` restores the newest valid snapshot first.
-
-Refused (it raises): ``exec.mode=shard_map`` (one card holds no
-multi-device mesh; ``core.trainer.SHARD_MAP_REFUSED``).
 """
 
 from __future__ import annotations
@@ -342,22 +345,26 @@ class Session:
 
 def build_session(spec: RunSpec, device="cuda", randomness=None,
                   params: Optional[Dict] = None,
-                  cache: Optional[BuildCache] = None) -> Session:
+                  cache: Optional[BuildCache] = None,
+                  backend: Optional[str] = None) -> Session:
     """Lower ``spec`` end to end onto ``device`` (the card unless the
     caller asks for the CPU; raises if the card is missing) and return the
     live :class:`Session`. ``exec.auto`` is resolved first
     (:func:`resolve_auto`). ``params`` and ``randomness`` default to fresh
     ones drawn from ``exec.seed`` (under multiproc ``randomness`` must
     pickle: every rank gets a copy); ``cache`` shares the graph and
-    partition builds with other sessions."""
+    partition builds with other sessions. ``backend`` is shard_map's
+    ``torch.distributed`` backend (default: NCCL on the card, gloo on the
+    CPU; ``launch.spmd.resolve_backend``), and no other mode takes one."""
     from repro_torch.core import DistributedTrainer
-    from repro_torch.core.trainer import (SHARD_MAP_REFUSED, lift_worker_data,
+    from repro_torch.core.trainer import (lift_worker_data,
                                           prepare_distributed_host,
                                           resolve_device)
 
     spec = resolve_auto(spec.validate())
-    if spec.exec.mode == "shard_map":
-        raise NotImplementedError(SHARD_MAP_REFUSED)
+    if backend is not None and spec.exec.mode != "shard_map":
+        raise ValueError(f"backend={backend!r} is for exec.mode=shard_map, not "
+                         f"{spec.exec.mode!r}")
     dev = resolve_device(device)
     if cache is not None:
         g, x = cache.graph(spec)
@@ -370,6 +377,11 @@ def build_session(spec: RunSpec, device="cuda", randomness=None,
         from repro_torch.launch.multiproc import MultiprocRuntime
         runtime = MultiprocRuntime(spec, hwd, device=dev, params=params,
                                    randomness=randomness)
+        return Session(spec, g, x, pg, hwd, runtime)
+    if spec.exec.mode == "shard_map":
+        from repro_torch.launch.spmd import ShardMapRuntime
+        runtime = ShardMapRuntime(spec, hwd, device=dev, params=params,
+                                  randomness=randomness, backend=backend)
         return Session(spec, g, x, pg, hwd, runtime)
     wd = lift_worker_data(hwd, device=dev)
     dc = spec.schedule.to_dist_config(spec.partition, lr=spec.exec.lr)

@@ -435,6 +435,39 @@ def test_multiproc_on_card_matches_stacked(cuda):
 
 
 @pytest.mark.gpu
+def test_shard_map_gloo_on_card_equals_multiproc(cuda):
+    """The small flagship spec under exec.mode=shard_map as 8 gloo ranks
+    sharing the card (backend="gloo") against multiproc on the card, from
+    the same parameters and draws: losses and evaluation bitwise (every
+    cross-rank sum moves data, then sums in rank order), equal wire bytes,
+    and every rank launches every kernel."""
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.launch.shm_store import leaked_segments
+    from repro_torch.run import RunSpec, build_session
+
+    base = RunSpec.from_dict(TRAIN_FLAGSHIP)
+    runs = {}
+    for mode, backend in (("shard_map", "gloo"), ("multiproc", None)):
+        session = build_session(base.with_overrides([f"exec.mode={mode}"]), device=cuda,
+                                backend=backend)
+        rt = session.trainer
+        try:
+            losses = [session.train_epoch()["loss"] for _ in range(3)]
+            runs[mode] = (losses, session.evaluate(), list(rt.epoch_stats), rt.token)
+        finally:
+            session.close()
+        assert leaked_segments(runs[mode][3]) == []
+    assert runs["shard_map"][:2] == runs["multiproc"][:2]
+    stats = runs["shard_map"][2]
+    assert ([s["wire_bytes"] for s in stats]
+            == [s["wire_bytes"] for s in runs["multiproc"][2]])
+    for rank in range(8):
+        total = {k: sum(s["launches"][rank][k] for s in stats)
+                 for k in stats[0]["launches"][rank]}
+        assert all(v > 0 for v in total.values()), (rank, total)
+
+
+@pytest.mark.gpu
 def test_chaos_kill_on_card_is_bitwise(cuda, tmp_path):
     from repro_torch.launch.chaos import evaluate_case, run_baseline, run_faulted
     from repro_torch.run import RunSpec

@@ -238,8 +238,12 @@ def test_launch_train_cli_on_cpu():
 
 def test_unported_paths_raise(monkeypatch):
     spec = RunSpec.load(ROOT / "specs" / "flagship_hier_int2_overlap.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        build_session(spec, device="cpu")                    # exec.mode=shard_map
+    # exec.mode=shard_map is ported (tests/test_torch_shard_map.py): the
+    # flagship spec as written builds 8 gloo ranks on the CPU and trains.
+    from repro_torch.launch.spmd import ShardMapRuntime
+    with build_session(spec, device="cpu") as sess:
+        assert isinstance(sess.trainer, ShardMapRuntime)
+        assert np.isfinite(sess.train_epoch()["loss"])
     spec = spec.with_overrides(["exec.mode=vmap"])
     # exec.auto and lower_step are ported (tests/test_torch_tune.py,
     # tests/test_torch_analysis.py): a missing tuner file is refused as a
