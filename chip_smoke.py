@@ -113,9 +113,13 @@ the result line is printed:
              segment; detection, respawn and restore seconds.
 14. audit and tune — at the full width of train_products_paper, on the
              card: the spec matrix (run.matrix over specs/: 8 ok, the two
-             shard_map specs lowered as stacked, multiproc's dry plan, the
-             serve spec served); the audit gate over specs/ and the AST lint
-             over src/repro_torch (zero findings); the audit of
+             shard_map specs lowered as their ranks' own programs, 8 and 4
+             of them, multiproc's dry plan, the serve spec served); the
+             audit gate over specs/ and the AST lint over src/repro_torch
+             (zero findings; the shard_map specs audited on their rank
+             programs, skipping no rule their stacked stand-in ran); each
+             shard_map spec's rank programs lowered on the card (ops and
+             collectives per rank, seconds); the audit of
              train_products_paper (five rules run, zero findings) with its
              recorded all-to-all bytes per worker beside the prediction, per
              stage; the audit-gated tuner (run.tune over DEFAULT_AXES, top 3,
@@ -130,7 +134,8 @@ the result line is printed:
              quantizer pair must have launched. Then, outside the counts,
              every kernel against its plain version on the layouts of each
              shortlisted candidate and each training spec of specs/ (flat
-             and hierarchical; a tuned partition builds other buckets):
+             and hierarchical; a tuned partition builds other buckets; the
+             shard_map specs also at their ranks' shapes, phase 12's check):
              seg_aggregate forward and backward at F in (100, 256, 47) within
              1e-5 and two launches bitwise, the quantizer pair bitwise at
              each quantized stage's wire rows.
@@ -195,21 +200,25 @@ the result line is printed:
 17. dry-run — the port's GCN dry-run entry point (launch/dryrun.py --gcn,
              run through its main on the card): the JAX package's
              check-overlap line (rmat-10, 8 workers, 2 groups, Int2,
-             --overlap --assert-overlap; the base spec is shard_map, so
-             the workers run stacked, lowered_as vmap), where both overlap
-             flags must read true and the overlap-order rule find nothing;
-             the same with --no-overlap, where both must read false; then
-             the JAX package's default, 256 workers at rmat-13 (flat, Int2).
-             Each record must have status ok and its recorded all-to-all
-             bytes equal to predicted_hlo_wire_bytes; its collectives,
-             cost, peak device memory (the session and its recorded step,
-             above what was held before) and seconds are printed. The
-             launch counts are reset before the first run and read after
-             the last: every kernel must have launched. Then the check
-             line on the CPU, whose cost and collectives must equal the
-             card's, and every kernel against its plain version on the
-             three runs' sessions (phase 14's check, F in (100, 256, 47,
-             128)).
+             --overlap --assert-overlap; the base spec is shard_map, so each
+             worker's program is recorded as a rank's own, one rank after
+             another on the card), where the overlap flags must read true on
+             every rank (the inter all-to-all too) and the overlap-order rule
+             find nothing; the same with --no-overlap, where they must read
+             false; then the JAX package's default, 256 workers at rmat-13
+             (flat, Int2), 256 rank programs. Each record must have status
+             ok, a rank program per worker, no unrecorded collective and
+             every rank's recorded all-to-all bytes equal to
+             predicted_hlo_wire_bytes; its collectives, cost (per worker),
+             peak device memory (the session and its recorded steps, above
+             what was held before) and seconds are printed. The launch
+             counts are reset before the first run and read after the last:
+             every kernel must have launched. Then the check line on the
+             CPU, whose cost and collectives must equal the card's, and
+             every kernel against its plain version at the three runs' rank
+             shapes (phase 12's check on every rank, F in (128, 256)) and
+             on their stacked layouts, all workers in one launch (phase
+             14's check, F in (100, 256, 47, 128)).
 18. LM dry-run — the port's LM dry-run entry point (launch/dryrun.py
              --arch/--shape, through its main) on the card for one
              combination of each input shape and each family (whisper-small
@@ -248,6 +257,12 @@ the result line is printed:
              fewer wire bytes than a refresh; per-rank epoch ms, host
              seconds in the wire and in Work.wait, wire bytes. Then the
              fleet restores its epoch-0 checkpoint and runs again: bitwise.
+             Then the ranks' programs lowered at epoch 0 in this process
+             (Session.lower: the fake backend, every rank on the card): per
+             rank, the bytes its recorded collectives deliver must equal
+             the wire_bytes the real rank reported for epoch 0, every
+             kernel must launch, and every rank posts its inter all-to-all
+             before its local aggregation.
              Then NCCL over the visible cards, each against the stacked run
              of its spec under the same bars, every rank launching every
              kernel: a flat P = 1 Int2 variant on any card (each collective
@@ -1411,16 +1426,18 @@ def rank_draw_cost(dev) -> dict:
     return {"stacked_ms": out[MP_RANKS], "own_row_ms": out[1]}
 
 
-def check_rank_kernels(rt, dev, tag: str = "multiproc") -> dict:
+def check_rank_kernels(rt, dev, tag: str = "multiproc", need_quant: bool = True) -> dict:
     """Every kernel of the multiproc (or shard_map: ``tag``) path at the
-    shapes a rank gives it, before the fleet starts. seg_aggregate forward and backward on each
+    shapes a rank gives it (before the fleet starts, or as ``Session.lower``
+    records each rank). seg_aggregate forward and backward on each
     rank's ``[1, ...]`` slice of the ten training layouts, built from the
     runtime's store arrays as the rank builds them: two launches bitwise,
     bitwise equal to that rank's row of one stacked launch, and within
     rtol = atol = TOL of the plain version. quant_pack and dequant_unpack
     on the rows each quantized stage of a rank covers (the psum-scattered
     [G*s, F] shard of the grouped inter stage) at every layer's width:
-    bitwise equal to the plain versions."""
+    bitwise equal to the plain versions; unless ``need_quant`` is false, a
+    schedule that quantizes no stage fails. Every rank is checked."""
     import numpy as np
     import torch
 
@@ -1443,11 +1460,11 @@ def check_rank_kernels(rt, dev, tag: str = "multiproc") -> dict:
         stacked = sa.device_bucketed(
             [(k, *(arrays[f"{prefix}.{i}.{a}"] for a in ("rows", "idx", "w")))
              for i, k in enumerate(ks)], device=dev, squeeze=False)
+        lays = [_rank_ell(arrays, prefix, ks, r, dev) for r in range(rt.nprocs)]
         for f in sorted(set(meta["feat_dims"])):
             x = torch.randn((rt.nprocs, n_in, f), device=dev)
             whole = sa._bucketed_forward(x, stacked, n_out, backward=bwd)
-            for r in range(rt.nprocs):
-                lay = _rank_ell(arrays, prefix, ks, r, dev)
+            for r, lay in enumerate(lays):
                 xr = x[r:r + 1].contiguous()
                 y = sa._bucketed_forward(xr, lay, n_out, backward=bwd)
                 if not torch.equal(y, sa._bucketed_forward(xr, lay, n_out, backward=bwd)):
@@ -1457,8 +1474,8 @@ def check_rank_kernels(rt, dev, tag: str = "multiproc") -> dict:
                          "stacked launch")
                 k = "seg_aggregate_backward" if bwd else "seg_aggregate"
                 worst[k] = max(worst[k], max_err(y, sa.bucketed_forward_ref(xr, lay, n_out)))
-    print(f"[{tag}] seg_aggregate forward and backward on every rank's [1, ...] "
-          f"slice of the {len(layouts)} training layouts at F in "
+    print(f"[{tag}] seg_aggregate forward and backward on every rank's [1, ...] slice "
+          f"({rt.nprocs} ranks) of the {len(layouts)} training layouts at F in "
           f"{sorted(set(meta['feat_dims']))}: two launches bitwise, bitwise equal to "
           f"the rank's row of the stacked launch; max abs err to the plain version "
           f"{worst['seg_aggregate']:.3e} forward, {worst['seg_aggregate_backward']:.3e} "
@@ -1480,7 +1497,7 @@ def check_rank_kernels(rt, dev, tag: str = "multiproc") -> dict:
                             compare_quant(x, u, stage.bits, f)):
                 worst[k] = max(worst[k], e)
             shapes.append((stage.level, qrows, f, stage.bits))
-    if not shapes:
+    if not shapes and need_quant:
         fail(f"{tag}: the schedule quantizes no stage")
     print(f"[{tag}] quant_pack and dequant_unpack equal their plain versions "
           f"bitwise at each rank's quantized shapes (level, rows, F, bits) {shapes}",
@@ -1753,12 +1770,35 @@ def shard_map_phase(dev, stacked: dict, multi: dict) -> dict:
                              "stats": list(rt.epoch_stats[-TRAIN_EPOCHS:]),
                              "per_rank": _rank_launches(rt.epoch_stats[-TRAIN_EPOCHS:],
                                                         rt.eval_launches)})
+        # The ranks' own programs, lowered in this process (the fake
+        # backend, every rank on this card; the fleet is not involved).
+        before = counts()
+        t0 = time.perf_counter()
+        lowered = session.lower(epoch=0)
+        torch.cuda.synchronize()
+        lower_s = time.perf_counter() - t0
+        lower_launches = {k: v - before[k] for k, v in counts().items()}
         smry = rt.summary()
         token = rt.token
     finally:
         session.close()
     leaked = leaked_segments(token)
     first = runs[0]
+    lowered_bytes = [p.wire_bytes() for p in lowered.programs]
+    print(f"[{tag}] lowered the {len(lowered.programs)} ranks' programs at epoch 0 on the "
+          f"card in {lower_s:.3f} s: ops per rank {[len(p.ops) for p in lowered.programs]}, "
+          f"collectives per rank {[len(p.collectives()) for p in lowered.programs]}; "
+          f"bytes the recorded collectives deliver per rank {lowered_bytes}, the ranks' "
+          f"wire_bytes in epoch 0 {first['stats'][0]['wire_bytes']}; kernel launches "
+          f"while lowering {lower_launches}", flush=True)
+    if lowered_bytes != first["stats"][0]["wire_bytes"]:
+        fail(f"{tag}: the lowered programs' bytes {lowered_bytes} are not the ranks' "
+             f"refresh-epoch wire_bytes {first['stats'][0]['wire_bytes']}")
+    for k, v in lower_launches.items():
+        if v <= 0:
+            fail(f"{tag}: lowering the ranks' programs launched no {k} kernel")
+    if not lowered.collective_order()["inter_a2a_before_compute"]:
+        fail(f"{tag}: a rank posts the wire between groups after its local aggregation")
     losses = [m["loss"] for m in first["epochs"]]
     ref = [m["loss"] for m in stacked["epochs"]]
     diffs = [abs(a - b) for a, b in zip(losses, ref)]
@@ -1804,13 +1844,16 @@ def shard_map_phase(dev, stacked: dict, multi: dict) -> dict:
     launched = {k: sum(t[k] for t in first["per_rank"]) for k in first["per_rank"][0]}
     return {"losses": losses, "diffs": diffs, "stats": first["stats"],
             "launches": launched, "per_rank": first["per_rank"], "checked": checked,
-            "nccl": nccl, "seconds": secs}
+            "lower_launches": lower_launches, "lower_s": lower_s, "nccl": nccl,
+            "seconds": secs}
 
 
 # -- phase 14: audit and tune -------------------------------------------------
 
 TUNE_TOP_K = 3
 AUTO_EPOCHS = 2
+# The shard_map specs of specs/ and their ranks.
+SHARD_MAP_SPECS = {"flagship_hier_int2_overlap.json": 8, "shard_map.json": 4}
 
 
 def _stage_bytes(step, level) -> int:
@@ -1915,7 +1958,7 @@ def audit_tune_phase(dev) -> dict:
     recs = run_matrix(ROOT / "specs", device=dev, verbose=False)
     secs["matrix"] = time.perf_counter() - t0
     for r in recs:
-        extra = {k: r[k] for k in ("lowered_as", "lowered_ops", "served") if k in r}
+        extra = {k: r[k] for k in ("ranks", "lowered_ops", "served") if k in r}
         if "store" in r:
             extra["store_bytes"] = r["store"]["store_bytes"]
         print(f"[matrix] {r['spec']:32s} {r.get('hash', '-'):16s} {r['status']} "
@@ -1923,11 +1966,12 @@ def audit_tune_phase(dev) -> dict:
               flush=True)
     bad = [f"{r['spec']} ({r.get('hash', '-')}): {r.get('error')}" for r in recs
            if r["status"] != "ok"]
-    stacked = sorted(r["spec"] for r in recs if r.get("lowered_as") == "vmap")
+    ranked = {r["spec"]: r["ranks"] for r in recs if "ranks" in r}
     if bad or len(recs) != 8:
         fail(f"spec matrix on the card: {len(recs)} specs, errors {bad}")
-    if stacked != ["flagship_hier_int2_overlap.json", "shard_map.json"]:
-        fail(f"spec matrix: the shard_map specs must lower as stacked, got {stacked}")
+    if ranked != SHARD_MAP_SPECS:
+        fail(f"spec matrix: the shard_map specs must lower as their ranks' programs "
+             f"{SHARD_MAP_SPECS}, got {ranked}")
     by = {r["spec"]: r for r in recs}
     if "store" not in by["multiproc_p4.json"] or by["serve_flagship.json"].get("served") != 4:
         fail("spec matrix: multiproc gave no dry plan or the serve spec served no burst")
@@ -1940,11 +1984,42 @@ def audit_tune_phase(dev) -> dict:
     for r in report["specs"]:
         print(f"[audit] {r['spec']:32s} {r.get('hash', '-'):16s} ran {len(r['ran'])} "
               f"skipped {len(r['skipped'])} findings {len(r['findings'])} "
-              f"{r.get('lowered_as', '')} {r['elapsed_s']} s", flush=True)
+              f"{'ranks ' + str(r['ranks']) if 'ranks' in r else ''} {r['elapsed_s']} s",
+              flush=True)
     print(f"[audit] ast-lint src/repro_torch: {len(report['lint']['findings'])} findings",
           flush=True)
     if report["summary"]["findings"]:
         fail(f"audit of specs/ and the lint on the card: {report['summary']}")
+    # The shard_map specs, on their ranks' programs: every rule that ran on
+    # their stacked stand-in runs (shard_map.json ships fp32, so wire-dtype
+    # does not apply).
+    audited = {r["spec"]: r for r in report["specs"]}
+    for name, ranks in SHARD_MAP_SPECS.items():
+        r = audited[name]
+        skipped = [] if name.startswith("flagship") else ["wire-dtype"]
+        if r.get("ranks") != ranks or r["skipped"] != skipped or r["rule_errors"]:
+            fail(f"audit of {name} on the card: ranks {r.get('ranks')}, ran {r['ran']}, "
+                 f"skipped {r['skipped']} (want {ranks} ranks, skipped {skipped})")
+
+    # Each shard_map spec's rank programs, lowered on the card: op counts,
+    # collectives and seconds. Their kernels are held to the plain versions
+    # at the ranks' shapes below, after the counts are read.
+    for name in SHARD_MAP_SPECS:
+        with build_session(RunSpec.load(ROOT / "specs" / name), device=dev) as sess:
+            t0 = time.perf_counter()
+            progs = sess.lower().programs
+            torch.cuda.synchronize()
+            secs[f"lower {name}"] = time.perf_counter() - t0
+            by_kind = {}
+            for o in progs[0].collectives():
+                by_kind[o.kind] = by_kind.get(o.kind, 0) + 1
+            print(f"[audit] {name}: {len(progs)} rank programs lowered on the card in "
+                  f"{secs[f'lower {name}']:.3f} s; ops per rank "
+                  f"{[len(p.ops) for p in progs]}; collectives per rank "
+                  f"{[len(p.collectives()) for p in progs]} (rank 0 by kind {by_kind}); "
+                  f"all-to-all bytes per rank "
+                  f"{[sum(o.bytes for o in p.collectives('all-to-all')) for p in progs]}",
+                  flush=True)
 
     t0 = time.perf_counter()
     base = train_products_paper()
@@ -2018,7 +2093,9 @@ def audit_tune_phase(dev) -> dict:
     # After the counts are read: the kernels against their plain versions
     # on the layouts of every shortlisted candidate and of every training
     # spec in specs/ (the matrix's and the audit's flat and hierarchical
-    # toy sessions, shard_map and multiproc as their stacked variants).
+    # toy sessions; multiproc as its stacked variant), and for the
+    # shard_map specs, whose rank programs were lowered, at the ranks'
+    # shapes and on their stacked variants' layouts.
     t0 = time.perf_counter()
     worst = dict.fromkeys(("seg_aggregate", "seg_aggregate_backward", "quant_pack",
                            "dequant_unpack"), 0.0)
@@ -2027,13 +2104,21 @@ def audit_tune_phase(dev) -> dict:
     for path in sorted((ROOT / "specs").glob("*.json")):
         if not _is_serve_path(path):
             spec = RunSpec.load(path)
+            if spec.exec.mode == "shard_map":
+                sessions.append((f"specs/{path.name}", spec))
             if spec.exec.mode != "vmap":
                 spec = spec.with_overrides(list(STACKED_OVERRIDES))
-            sessions.append((f"specs/{path.name}", spec))
+            sessions.append((f"specs/{path.name}" + (" stacked" if path.name in
+                                                     SHARD_MAP_SPECS else ""), spec))
     for label, spec in sessions:
         sess = build_session(spec, device=dev, cache=cache)
         try:
-            for k, e in check_session_kernels(sess, dev, label).items():
+            if spec.exec.mode == "shard_map":
+                errs = check_rank_kernels(sess.trainer, dev, tag=f"tune {label} ranks",
+                                          need_quant=_quantized(spec))["max_abs_err"]
+            else:
+                errs = check_session_kernels(sess, dev, label)
+            for k, e in errs.items():
                 worst[k] = max(worst[k], e)
         finally:
             sess.close()
@@ -2616,18 +2701,24 @@ def run_dryrun(args, dev, out: Path) -> dict:
     if dev.type == "cuda" and not (rec["memory"] or 0) > 0:
         fail(f"dryrun {' '.join(argv)}: no peak device memory recorded ({rec['memory']})")
     a2a = rec["collectives"]["all-to-all"]["result_bytes"]
-    if a2a != rec["predicted_hlo_wire_bytes"]["total"]:
-        fail(f"dryrun {' '.join(argv)}: recorded all-to-all bytes {a2a} per worker, "
+    per_rank = set(rec["all_to_all_bytes_per_rank"])
+    if rec.get("ranks") != rec["chips"] or "unrecorded" in rec["collectives"]:
+        fail(f"dryrun {' '.join(argv)}: {rec.get('ranks')} rank programs of "
+             f"{rec['chips']} workers, collectives {rec['collectives']}")
+    if per_rank != {rec["predicted_hlo_wire_bytes"]["total"]} or a2a not in per_rank:
+        fail(f"dryrun {' '.join(argv)}: recorded all-to-all bytes per rank {per_rank}, "
              f"predicted {rec['predicted_hlo_wire_bytes']}")
     rec["seconds"] = secs
     order = rec["collective_order"]
     print(f"[dryrun] {' '.join(args)}: {rec['shape']} on {rec['mesh']} "
-          f"({rec['chips']} workers stacked, lowered_as {rec.get('lowered_as')}) in "
-          f"{secs:.2f} s (recorded step {rec['lower_s']} s); peak "
+          f"({rec['ranks']} rank programs) in {secs:.2f} s (the ranks' steps recorded "
+          f"and counted in {rec['lower_s']} s); peak "
           f"{(rec['memory'] or 0) / 1e9:.3f} GB above what was held before it; "
-          f"all-to-all bytes {a2a:.0f} per worker = predicted; wire_before_compute "
-          f"{order['wire_before_compute']} inter_wire_before_compute "
-          f"{order['inter_wire_before_compute']}; {order['num_events']} events", flush=True)
+          f"all-to-all bytes {a2a:.0f} per worker on every rank = predicted; "
+          f"wire_before_compute {order['wire_before_compute']} inter_wire_before_compute "
+          f"{order['inter_wire_before_compute']} inter_a2a_before_compute "
+          f"{order['inter_a2a_before_compute']} on every rank; {order['num_events']} events "
+          f"of rank 0's program", flush=True)
     print(f"[dryrun]   collectives {json.dumps(rec['collectives'])}", flush=True)
     print(f"[dryrun]   cost {json.dumps(rec['cost'])}; memory {rec['memory']}; "
           f"predicted wire bytes {json.dumps(rec['predicted_wire_bytes'])}; "
@@ -2653,7 +2744,7 @@ def dryrun_phase(dev, full=DRYRUN_FULL) -> dict:
     held = torch.cuda.memory_allocated()
     reset_counts()
     check = run_dryrun(DRYRUN_CHECK, dev, base / "check_overlap")
-    flags = ("wire_before_compute", "inter_wire_before_compute")
+    flags = ("wire_before_compute", "inter_wire_before_compute", "inter_a2a_before_compute")
     if not all(check["collective_order"][k] for k in flags):
         fail(f"dryrun with --overlap: {[check['collective_order'][k] for k in flags]}")
     no_overlap = [a for a in DRYRUN_CHECK if a not in ("--overlap", "--assert-overlap")]
@@ -2670,9 +2761,10 @@ def dryrun_phase(dev, full=DRYRUN_FULL) -> dict:
 
     # After the counts are read: the check line on the CPU, whose cost and
     # collectives must be the card's (kernel calls count as one op on both
-    # devices), then every kernel against its plain version at the layouts
-    # and wire rows of each run's session, at the model's widths (128 in,
-    # 256 hidden) besides phase 14's.
+    # devices), then every kernel against its plain version: at the shapes
+    # each run's ranks gave it, every rank, at the model's widths (128 in,
+    # 256 hidden); and on each run's stacked layouts (all its workers in
+    # one launch), at F in (100, 256, 47, 128).
     host = run_dryrun(DRYRUN_CHECK, torch.device("cpu"), base / "check_overlap_cpu")
     for key in ("cost", "collectives"):
         if host[key] != check[key]:
@@ -2683,18 +2775,24 @@ def dryrun_phase(dev, full=DRYRUN_FULL) -> dict:
     worst = dict.fromkeys(("seg_aggregate", "seg_aggregate_backward", "quant_pack",
                            "dequant_unpack"), 0.0)
     for rec in (check, seq, default):
-        spec = RunSpec.from_dict(rec["spec"]).with_overrides(list(STACKED_OVERRIDES))
+        label = f"dryrun {rec['shape']} {rec['mesh']}"
+        spec = RunSpec.from_dict(rec["spec"])
         sess = build_session(spec, device=dev)
         try:
-            errs = check_session_kernels(sess, dev, f"dryrun {rec['shape']} {rec['mesh']}",
-                                         fs=(100, 256, 47, 128))
+            errs = check_rank_kernels(sess.trainer, dev, tag=label)["max_abs_err"]
         finally:
             sess.close()
-        for k, e in errs.items():
-            worst[k] = max(worst[k], e)
-    print(f"[dryrun] kernels against their plain versions on the 3 runs' sessions in "
-          f"{time.perf_counter() - t1:.2f} s: max abs err "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+        sess = build_session(spec.with_overrides(list(STACKED_OVERRIDES)), device=dev)
+        try:
+            stacked = check_session_kernels(sess, dev, f"{label} stacked",
+                                            fs=(100, 256, 47, 128))
+        finally:
+            sess.close()
+        for k in worst:
+            worst[k] = max(worst[k], errs[k], stacked[k])
+    print(f"[dryrun] kernels against their plain versions at the 3 runs' rank shapes "
+          f"(every rank) and stacked layouts in {time.perf_counter() - t1:.2f} s: max "
+          f"abs err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
     secs = time.perf_counter() - t0
     print(f"[dryrun] phase 17 in {secs:.1f} s; device memory held by earlier phases "
           f"{held / 1e9:.3f} GB", flush=True)
@@ -3225,7 +3323,7 @@ def main() -> None:
              "single_sage": single["launches"], "single_gat": gat["launches"],
              "gat_serve": gat_served["launches"], "ckpt_resume_serve": ckpt["launches"],
              "multiproc": multi["launches"], "shard_map": sm["launches"],
-             "tune": tuned["launches"],
+             "shard_map_lower": sm["lower_launches"], "tune": tuned["launches"],
              "lm_train": lm_trained["launches"], "dryrun": dry["launches"],
              "lm_dryrun": lm_dry["launches"], "quantized_collectives": lm_dry["qc_launches"]}
     for k in kernels:

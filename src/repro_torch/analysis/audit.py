@@ -8,8 +8,8 @@ With no ``--spec``, audits every ``*.json`` under ``specs/`` (the
 canonical support matrix). Each spec's step is built and recorded on
 ``--device`` (the card by default; it raises if there is none, and
 ``--device cpu`` runs the plain PyTorch path). A ``shard_map`` spec is
-audited through its stacked variant and reported with ``"lowered_as":
-"vmap"``. Exit codes are severity-aware:
+audited on its ranks' own recorded programs (``Session.lower()``, no
+fleet started). Exit codes are severity-aware:
 
   0  clean, or worst finding below the ``--fail-on`` threshold
   1  worst finding is a WARNING at/above the threshold
@@ -58,16 +58,16 @@ def audit_spec(spec, spec_name: str = "",
     """Run the (selected) step rules over one RunSpec built on ``device``.
 
     Returns ``run_rules``' dict: findings (Finding objects), ran, skipped,
-    rule_errors, plus ``lowered_as`` when the spec was audited through its
-    stacked variant. The session is closed before returning.
+    rule_errors, plus ``ranks`` (the rank programs read) for a
+    ``shard_map`` spec. The session is closed before returning.
     """
     ctx = AuditContext(spec, spec_name=spec_name, steps=steps, device=device)
     try:
         res = run_rules(ctx, rule_ids)
+        if ctx._lowered is not None and ctx._lowered.programs[0].rank is not None:
+            res["ranks"] = len(ctx._lowered.programs)
     finally:
         ctx.close()
-    if ctx.lowered_as:
-        res["lowered_as"] = ctx.lowered_as
     return res
 
 
@@ -117,8 +117,8 @@ def audit_paths(spec_paths: Sequence[Path],
         rec["ran"] = res["ran"]
         rec["skipped"] = res["skipped"]
         rec["rule_errors"] = res["rule_errors"]
-        if res.get("lowered_as"):
-            rec["lowered_as"] = res["lowered_as"]
+        if "ranks" in res:
+            rec["ranks"] = res["ranks"]
         rec["findings"] = [f.as_dict() for f in res["findings"]]
         rec["elapsed_s"] = round(time.time() - t0, 2)
         report["specs"].append(rec)
@@ -126,7 +126,7 @@ def audit_paths(spec_paths: Sequence[Path],
         if verbose:
             n = len(res["findings"])
             tag = "FAIL" if n else "ok"
-            as_ = f" lowered_as={rec['lowered_as']}" if "lowered_as" in rec else ""
+            as_ = f" ranks={rec['ranks']}" if "ranks" in rec else ""
             print(f"[{tag:4s}] {path.name:34s} ran={len(res['ran'])} "
                   f"skipped={len(res['skipped'])} findings={n}{as_} "
                   f"({rec['elapsed_s']}s)")

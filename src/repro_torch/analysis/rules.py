@@ -11,10 +11,11 @@ session on its device, the recorded step, the predicted wire bytes) that
 only pays for what the selected rules touch.
 
 A ``shard_map`` spec trains as one process per worker
-(``launch.spmd``), which has no single recorded step; its context builds
-the stacked variant (``exec.mode=vmap``, the override the tuner's audit
-applies) and says so in ``lowered_as``. Recording a rank's own
-collectives is later work.
+(``launch.spmd``); its context reads every rank's own recorded program
+(``core.record.RankPrograms``), with the process group of each
+collective, as the JAX package's reads the lowered ``shard_map`` module.
+A ``vmap`` spec's is the stacked step of all workers. Multiproc records
+none.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.utils.registry import Registry
 
-# The overrides that give a spec's stacked (vmap) variant.
+# The overrides that give a spec's stacked (vmap) variant: what the tuner
+# audits, as the JAX package's tuner does.
 STACKED_OVERRIDES = ("exec.mode=vmap", "exec.nprocs=0")
 
 
@@ -88,19 +90,17 @@ class AuditContext:
         self.spec_name = spec_name or spec.content_hash()
         self.steps = steps
         self.device = device
-        self.lowered_as = "vmap" if spec.exec.mode == "shard_map" else ""
-        self.build_spec = (spec.with_overrides(list(STACKED_OVERRIDES))
-                           if self.lowered_as else spec)
         self._session = None
         self._schedule = None
         self._lowered = None
+        self._later = {}       # lowered programs of epochs after 0
         self._predicted = None
 
     @property
     def session(self):
         if self._session is None:
             from repro_torch.run.session import build_session
-            self._session = build_session(self.build_spec, device=self.device)
+            self._session = build_session(self.spec, device=self.device)
         return self._session
 
     @property
@@ -116,11 +116,20 @@ class AuditContext:
 
     @property
     def lowered(self):
-        """The recorded step (``core.record.LoweredStep``) of epoch 0, a
-        refresh epoch: every stage's wire runs."""
+        """The recorded step of epoch 0, a refresh epoch: every stage's
+        wire runs (``core.record.LoweredStep``, or ``RankPrograms`` for a
+        ``shard_map`` spec)."""
         if self._lowered is None:
             self._lowered = self.session.lower(epoch=0)
         return self._lowered
+
+    def lowered_at(self, epoch: int):
+        """The recorded step of ``epoch`` (memoized)."""
+        if epoch == 0:
+            return self.lowered
+        if epoch not in self._later:
+            self._later[epoch] = self.session.lower(epoch=epoch)
+        return self._later[epoch]
 
     @property
     def predicted_bytes(self) -> Dict[str, float]:
@@ -130,10 +139,10 @@ class AuditContext:
         return self._predicted
 
     @property
-    def stacked(self) -> bool:
-        """The step rules read a recorded stacked step. Multiproc runs one
-        process per worker and records none (the rules skip it, as the JAX
-        package's skip every mode but shard_map)."""
+    def recorded(self) -> bool:
+        """The step rules read a recorded step: the stacked one (vmap) or
+        the ranks' (shard_map). Multiproc records none (the rules skip it,
+        as the JAX package's skip every mode but shard_map)."""
         return self.spec.exec.mode != "multiproc"
 
     def close(self) -> None:

@@ -80,24 +80,26 @@ RECORDER = None
 
 
 @contextlib.contextmanager
-def recording():
+def recording(rank: Optional[int] = None):
     """Record every wire op and aggregation run inside the block, in call
-    order; yields the ``core.record.StepRecorder``."""
+    order; yields the ``core.record.StepRecorder``. ``rank`` records one
+    rank's own program (its buffers are per worker already)."""
 
     global RECORDER
-    prev, RECORDER = RECORDER, StepRecorder()
+    prev, RECORDER = RECORDER, StepRecorder(rank)
     try:
         yield RECORDER
     finally:
         RECORDER = prev
 
 
-def _backward_scope(scope):
+def _backward_scope(scope, direction: str = "backward"):
     """The recorder's scope for a backward op whose forward op was recorded
-    in ``scope`` (a no-op context when nothing records)."""
+    in ``scope`` (a no-op context when nothing records); ``direction``
+    "forward" for a forward op that finishes out of its scope."""
     if RECORDER is None or scope is None:
         return contextlib.nullcontext()
-    return RECORDER.backward(scope)
+    return RECORDER.scoped(scope, direction)
 
 
 # --------------------------------------------------------------------------
@@ -687,8 +689,8 @@ def _timed_wire(method):
 
 
 class _CollPost(torch.autograd.Function):
-    """Issue ``send``'s collectives (no waiting) and pass ``send`` through
-    as the carrier :class:`_CollCollect` takes."""
+    """Issue ``send``'s collectives and pass ``send`` through as the
+    carrier :class:`_CollCollect` takes."""
 
     @staticmethod
     def forward(ctx, send, wire):
@@ -703,16 +705,17 @@ class _CollPost(torch.autograd.Function):
 class _CollCollect(torch.autograd.Function):
     """Wait for the posted collectives and finish the receive buffer. The
     backward is the stage's transposed wire, re-quantized with the
-    backward uniforms."""
+    backward uniforms, recorded in the scope its forward was posted in."""
 
     @staticmethod
     def forward(ctx, carrier, wire):
-        ctx.wire = wire
+        ctx.wire, ctx.scope = wire, wire.scope
         return wire.h_collect()
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.wire.h_bwd(g.contiguous()), None
+        with _backward_scope(ctx.scope):
+            return ctx.wire.h_bwd(g.contiguous()), None
 
 
 class CollectiveWire:
@@ -731,18 +734,32 @@ class CollectiveWire:
     sum), the all_to_all over the group axis, and the all_gather over the
     node group. A quantized all_to_all quantizes the whole buffer with
     ``quant_pack`` and moves the packed words and the fp32 (zero, scale)
-    per 4-row group, then ``dequant_unpack``: ``_quantized_wire`` on one
-    rank. Its uniforms are this rank's row of the stacked draw
-    ``noise(backward, (P, rows, F))``, so a rank quantizes with the numbers
-    the stacked run gives its worker.
+    per 4-row group in two all_to_alls (the JAX package's program moves
+    zeros and scales in two of their own: ROADMAP C-ref19), then
+    ``dequant_unpack``: ``_quantized_wire`` on one rank. Its uniforms are
+    this rank's row of the stacked draw ``noise(backward, (P, rows, F))``,
+    so a rank quantizes with the numbers the stacked run gives its worker.
 
-    ``post`` issues its collectives with ``async_op=True`` and returns;
-    ``collect`` waits on the work handles. Between the two the rank runs
-    its local aggregation, so an ``overlap`` stage's wire runs beside it
-    (on NCCL's stream, or gloo's thread). The backward of a collect is the
-    stage's transposed pipeline, issued and waited in one go: an
-    all_to_all's transpose is itself, the all_gather's a psum_scatter and
-    the psum_scatter's an all_gather.
+    ``post`` issues with ``async_op=True``; ``collect`` waits on the work
+    handles. Between the two the rank runs its local aggregation, so an
+    ``overlap`` stage's wire runs beside it (on NCCL's stream, or gloo's
+    thread). A ``grouped`` stage's ``post`` waits for its psum_scatter,
+    sums, quantizes and posts the all_to_all between groups, so that wire
+    too runs beside the aggregation, as in the JAX package's program
+    (psum_scatter, all_to_all, all_gather, then the aggregation); its
+    ``collect`` dequantizes and runs the all_gather, which needs the
+    all_to_all's data. That all_gather after the local aggregation is the
+    one place where a rank's order differs from the JAX program's. The
+    sums and their order do not depend on where the host issues, so the
+    values are those of the stacked and multiproc runs. The backward of a
+    collect is the stage's transposed pipeline, issued and waited in one
+    go: an all_to_all's transpose is itself, the all_gather's a
+    psum_scatter and the psum_scatter's an all_gather.
+
+    Under ``core.exchange.recording`` each collective notes itself as it
+    is issued, with its process group's global ranks (``group``) and its
+    semantic kind (the psum_scatter, whatever moves its data); a
+    backward op in the scope of its forward.
 
     ``clock`` gathers this rank's ``wire_s`` (host seconds in the wire),
     ``wait_s`` (of them, in ``Work.wait``: on gloo until the data arrived;
@@ -768,6 +785,7 @@ class CollectiveWire:
         self._qrows = rows if topo.kind == "a2a" else topo.wire_chunks * self.s
         self._noise = None
         self._pending = None
+        self.scope = None   # the recorder's (layer, level) at the last post
 
     # -- the transport a LayerProgram drives ---------------------------------
 
@@ -792,6 +810,15 @@ class CollectiveWire:
         self.clock["wait_s"] += time.perf_counter() - t0
         return out
 
+    @staticmethod
+    def _note(kind: str, out: torch.Tensor, group, chunks: int, role: str = "") -> None:
+        """Record one issued collective (when something records)."""
+        if RECORDER is not None:
+            import torch.distributed as dist
+
+            RECORDER.note(kind, out, chunks=chunks, role=role,
+                          group=tuple(dist.get_process_group_ranks(group)))
+
     def _a2a(self, inp: torch.Tensor, group):
         import torch.distributed as dist
 
@@ -814,27 +841,42 @@ class CollectiveWire:
     def _wire_post(self, x: torch.Tensor, backward: bool) -> tuple:
         """Issue the (quantized) all_to_all of ``x`` [rows, F] over the
         stage's wire group."""
+        chunks = self.topo.wire_chunks
         if not self.bits:
-            return (self._a2a(x, self.wire_group),)
+            pending = self._a2a(x, self.wire_group)
+            self._note("all-to-all", pending[1], self.wire_group, chunks, "payload")
+            return (pending,)
         packed, zero, scale = quant_pack(x.contiguous(), self._uniform(backward).to(x.device),
                                          self.bits)
-        return (self._a2a(packed, self.wire_group),
-                self._a2a(torch.stack([zero, scale], 1), self.wire_group))
+        if RECORDER is not None:
+            RECORDER.note("quant_pack", packed)
+        out = []
+        for buf, role in ((packed, "payload"), (torch.stack([zero, scale], 1), "params")):
+            out.append(self._a2a(buf, self.wire_group))
+            self._note("all-to-all", out[-1][1], self.wire_group, chunks, role)
+        return tuple(out)
 
     def _wire_recv(self, pending: tuple) -> torch.Tensor:
         """Wait for :meth:`_wire_post`'s collectives; the received rows."""
         if not self.bits:
             return self._wait(pending[0])
         words, zs = (self._wait(p) for p in pending)
-        return dequant_unpack(words, zs[:, 0].contiguous(), zs[:, 1].contiguous(),
-                              self.bits, self.feat)
+        out = dequant_unpack(words, zs[:, 0].contiguous(), zs[:, 1].contiguous(),
+                             self.bits, self.feat)
+        if RECORDER is not None:
+            RECORDER.note("dequant_unpack", out)
+        return out
 
     def _psc_post(self, x: torch.Tensor):
         """psum_scatter's all_to_all over the node group: node ``w`` gets
-        this rank's ``[C, s, F]`` rows destined for it."""
+        this rank's ``[C, s, F]`` rows destined for it. Recorded as the
+        psum_scatter, with its [C*s, F] result."""
         c, w = self.topo.wire_chunks, self.topo.shard_size
         y = x.reshape(c, w, self.s, self.feat).transpose(0, 1)
-        return self._a2a(y, self.shard_group)
+        pending = self._a2a(y, self.shard_group)
+        self._note("psum_scatter", torch.empty((c * self.s, self.feat), dtype=y.dtype,
+                                               device="meta"), self.shard_group, w)
+        return pending
 
     def _psc_sum(self, pending) -> torch.Tensor:
         """The W sources' contributions summed in node order: [C*s, F]."""
@@ -847,30 +889,30 @@ class CollectiveWire:
     def _all_gather(self, shard: torch.Tensor) -> torch.Tensor:
         """all_gather over the node group: [C*s, F] -> [1, C*W*s, F]."""
         c, w = self.topo.wire_chunks, self.topo.shard_size
-        full = self._wait(self._gather(shard, self.shard_group, w))
+        pending = self._gather(shard, self.shard_group, w)
+        self._note("all_gather", pending[1], self.shard_group, w)
+        full = self._wait(pending)
         return full.reshape(w, c, self.s, self.feat).transpose(0, 1).reshape(
             1, self.rows, self.feat)
-
-    def _grouped_rest(self, psc, backward: bool) -> torch.Tensor:
-        shard = self._psc_sum(psc)
-        return self._all_gather(self._wire_recv(self._wire_post(shard, backward)))
 
     # -- the autograd Functions' halves ------------------------------------
 
     @_timed_wire
     def h_post(self, send: torch.Tensor) -> None:
+        self.scope = None if RECORDER is None else RECORDER.scope()
         x = send.detach()[0]
-        if self.topo.kind == "a2a":
-            self._pending = self._wire_post(x, False)
-        else:
-            self._pending = self._psc_post(x)
+        if self.topo.kind == "grouped":
+            x = self._psc_sum(self._psc_post(x))
+        self._pending = self._wire_post(x, False)
 
     @_timed_wire
     def h_collect(self) -> torch.Tensor:
         pending, self._pending = self._pending, None
-        if self.topo.kind == "a2a":
-            return self._wire_recv(pending)[None]
-        return self._grouped_rest(pending, False)
+        with _backward_scope(self.scope, "forward"):
+            recv = self._wire_recv(pending)
+            if self.topo.kind == "a2a":
+                return recv[None]
+            return self._all_gather(recv)
 
     @_timed_wire
     def h_bwd(self, g: torch.Tensor) -> torch.Tensor:
@@ -879,7 +921,8 @@ class CollectiveWire:
         # The all_gather's transpose is a psum_scatter of the cotangent,
         # then the re-quantized group all_to_all, then the forward
         # psum_scatter's transpose, an all_gather.
-        return self._grouped_rest(self._psc_post(g[0]), True)
+        shard = self._psc_sum(self._psc_post(g[0]))
+        return self._all_gather(self._wire_recv(self._wire_post(shard, True)))
 
 
 class LayerInFlight(NamedTuple):

@@ -13,10 +13,17 @@ core layer so that the trainer does not import the layer above it.
 What the recorder sees: every all-to-all (forward, and backward through
 its ``autograd.Function``), the psum_scatter and all_gather of a grouped
 stage where Python calls them (the quantized wire's backward included;
-autograd's transposes of the fp32 pre- and post-wire are not seen), the
-quantizer pair, and the forward aggregations (local graph, send-side
-pre-aggregation, receive scatter). The aggregation kernel's own backward
-is not recorded.
+in a stacked step autograd's transposes of the fp32 pre- and post-wire
+are not seen), the quantizer pair, and the forward aggregations (local
+graph, send-side pre-aggregation, receive scatter). The aggregation
+kernel's own backward is not recorded.
+
+A ``shard_map`` run has no stacked step: each rank records its own
+program (``launch.spmd.ShardMapRuntime.lower_step``), with the process
+group of every collective it issues and the gradient sum (``psum``), and
+:class:`RankPrograms` holds one :class:`LoweredStep` per rank. There every
+transpose is issued from Python (``core.exchange.CollectiveWire``), so
+nothing is left unseen.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, List, Optional, Tuple
 
-COLLECTIVE_KINDS = ("all-to-all", "psum_scatter", "all_gather")
+# "psum" is the gradient sum over all workers (a rank program's; the JAX
+# package's all-reduce): a collective, not a wire starter.
+COLLECTIVE_KINDS = ("all-to-all", "psum_scatter", "all_gather", "psum")
 QUANT_KINDS = ("quant_pack", "dequant_unpack")
 # The local aggregation: the bucketed kernel ("ell") or the edge-order
 # scatter-add ("coo").
@@ -63,11 +72,14 @@ class StepOp:
     # (pre-aggregation into the wire slots) or "recv" (receive scatter).
     role: str = ""
     dtype: str = ""               # torch dtype name without "torch."
-    shape: Tuple[int, ...] = ()   # stacked: [P, ...]
+    shape: Tuple[int, ...] = ()   # stacked: [P, ...]; a rank's: its own buffer
     bytes: int = 0                # per worker
     # all-to-all: the chunks it splits each worker's buffer into (one per
     # peer); psum_scatter / all_gather: the workers of a group it spans.
     chunks: Optional[int] = None
+    # A rank program's collective: the global ranks of its process group
+    # (empty in a stacked step, which has no process groups).
+    group: Tuple[int, ...] = ()
 
     @property
     def group_size(self) -> Optional[int]:
@@ -85,6 +97,23 @@ class StepOp:
         return (self.kind, self.direction, self.level, self.role, self.dtype,
                 self.shape)
 
+    def program_key(self) -> tuple:
+        """What every rank of one program must agree on: a rank that issues
+        another collective, or one over a group of another size, would
+        leave its peers waiting."""
+        return (self.kind, self.direction, self.layer, self.level, self.role,
+                self.dtype, len(self.group))
+
+    def wire_bytes(self) -> int:
+        """The bytes this collective delivers to a rank, counted as the
+        rank's ``wire_bytes`` counts them (``core.exchange.CollectiveWire``,
+        ``launch.spmd``): an all-to-all's buffer once, a psum_scatter's
+        input (its result times the group), an all_gather's result, and a
+        psum's P gathered copies of its vector."""
+        if self.kind in ("psum_scatter", "psum"):
+            return self.bytes * (self.chunks or 1)
+        return self.bytes if self.klass == "collective" else 0
+
     def as_event(self) -> dict:
         return {"line": self.index, "op": self.kind, "class": self.klass,
                 "group_size": self.chunks if self.klass == "collective" else None,
@@ -98,8 +127,9 @@ class StepRecorder:
     program set as they go; a backward op replays the scope its forward
     op was recorded in."""
 
-    def __init__(self):
+    def __init__(self, rank: Optional[int] = None):
         self.ops: List[StepOp] = []
+        self.rank = rank              # None: a stacked step
         self.layer: Optional[int] = None
         self.level: str = ""
         self.direction = "forward"
@@ -108,27 +138,39 @@ class StepRecorder:
         return self.layer, self.level
 
     @contextlib.contextmanager
-    def backward(self, scope: Tuple[Optional[int], str]) -> Iterator[None]:
+    def scoped(self, scope: Tuple[Optional[int], str],
+               direction: str = "forward") -> Iterator[None]:
+        """Record in ``scope`` (layer, level) and ``direction`` inside the
+        block: an op that finishes what another began, out of its scope."""
         saved = self.layer, self.level, self.direction
         self.layer, self.level = scope
-        self.direction = "backward"
+        self.direction = direction
         try:
             yield
         finally:
             self.layer, self.level, self.direction = saved
 
+    def backward(self, scope: Tuple[Optional[int], str]):
+        return self.scoped(scope, "backward")
+
     def note(self, kind: str, out, *, chunks: Optional[int] = None,
-             role: str = "", level: Optional[str] = None) -> None:
-        """Record ``kind`` producing ``out`` (a stacked [P, ...] tensor);
-        reads only its shape and dtype, so the device is never waited on."""
+             role: str = "", level: Optional[str] = None,
+             group: Tuple[int, ...] = ()) -> None:
+        """Record ``kind`` producing ``out``: a stacked [P, ...] tensor, or
+        under a rank's recorder the rank's own buffer (``[rows, F]`` or
+        ``[1, rows, F]``; a meta tensor where the op's result is not one
+        buffer). Reads only its shape and dtype, so the device is never
+        waited on."""
         shape = tuple(int(d) for d in out.shape)
-        nbytes = out.numel() * out.element_size() // max(shape[0], 1)
+        nbytes = out.numel() * out.element_size()
+        if self.rank is None:
+            nbytes //= max(shape[0], 1)
         self.ops.append(StepOp(
             kind=kind, klass=_klass(kind), index=len(self.ops),
             direction=self.direction, layer=self.layer,
             level=self.level if level is None else level, role=role,
             dtype=str(out.dtype).replace("torch.", ""), shape=shape,
-            bytes=int(nbytes), chunks=chunks))
+            bytes=int(nbytes), chunks=chunks, group=tuple(group)))
 
     def signature(self, start: int = 0) -> tuple:
         """The kinds, shapes and dtypes of the ops from ``start`` on: what
@@ -140,12 +182,23 @@ class StepRecorder:
 class LoweredStep:
     """One recorded training step (forward and backward): the ops in call
     order plus the epoch it ran at and the delayed stages that epoch left
-    stale (their wire does not run)."""
+    stale (their wire does not run). ``rank`` is the rank whose own
+    program it is, None for a stacked step of all workers."""
 
     ops: List[StepOp] = field(default_factory=list)
     epoch: int = 0
     nparts: int = 0
     stale_levels: Tuple[str, ...] = ()
+    rank: Optional[int] = None
+
+    @property
+    def programs(self) -> Tuple["LoweredStep", ...]:
+        """The per-worker programs: this step itself."""
+        return (self,)
+
+    def wire_bytes(self) -> int:
+        """Σ :meth:`StepOp.wire_bytes` over the recorded collectives."""
+        return sum(o.wire_bytes() for o in self.collectives())
 
     def walk(self, pred: Optional[Callable[[StepOp], bool]] = None
              ) -> List[StepOp]:
@@ -163,9 +216,12 @@ class LoweredStep:
         ``collective_order``, taken per layer of the forward: a layer
         passes when its first wire op comes before its local aggregation
         (``wire_before_compute``), and its first inter-stage wire op too
-        (``inter_wire_before_compute``). The top-level flags hold for
-        every layer; ``first_*`` are the first failing layer's (else the
-        first layer's); ``layers`` lists each layer's."""
+        (``inter_wire_before_compute``). The port adds
+        ``inter_a2a_before_compute``: the inter stage's all-to-all too
+        (the wire between groups, which the aggregation is to hide). The
+        top-level flags hold for every layer; ``first_*`` are the first
+        failing layer's (else the first layer's); ``layers`` lists each
+        layer's."""
         def precedes(a: Optional[StepOp], b: Optional[StepOp]) -> bool:
             return a is not None and b is not None and a.index < b.index
 
@@ -180,6 +236,7 @@ class LoweredStep:
             first = lambda pred: next((o for o in ops if pred(o)), None)
             wire = first(lambda o: o.kind in WIRE_START)
             inter = first(lambda o: o.kind in WIRE_START and o.level == "inter")
+            inter_a2a = first(lambda o: o.kind == "all-to-all" and o.level == "inter")
             compute = first(lambda o: o.klass == "compute" and o.role == "local")
             per_layer.append({
                 "layer": layer,
@@ -188,31 +245,70 @@ class LoweredStep:
                 "first_compute": as_event(compute),
                 "wire_before_compute": precedes(wire, compute),
                 "inter_wire_before_compute": precedes(inter, compute),
+                "inter_a2a_before_compute": precedes(inter_a2a, compute),
             })
-        failing = [d for d in per_layer if not (d["wire_before_compute"]
-                                                and d["inter_wire_before_compute"])]
+        flags = ("wire_before_compute", "inter_wire_before_compute",
+                 "inter_a2a_before_compute")
+        failing = [d for d in per_layer if not all(d[k] for k in flags)]
         pick = (failing or per_layer or [{}])[0]
         return {
             "events": [o.as_event() for o in self.ops],
             "first_wire": pick.get("first_wire"),
             "first_inter_wire": pick.get("first_inter_wire"),
             "first_compute": pick.get("first_compute"),
-            "wire_before_compute": bool(per_layer) and all(
-                d["wire_before_compute"] for d in per_layer),
-            "inter_wire_before_compute": bool(per_layer) and all(
-                d["inter_wire_before_compute"] for d in per_layer),
+            **{k: bool(per_layer) and all(d[k] for d in per_layer) for k in flags},
             "layers": per_layer,
         }
 
     def as_text(self) -> str:
         """One line per op (the port's ``lowered.as_text()``)."""
-        head = (f"# recorded step: epoch {self.epoch}, {self.nparts} workers, "
+        who = ("" if self.rank is None else f"rank {self.rank} of ")
+        head = (f"# recorded step: epoch {self.epoch}, {who}{self.nparts} workers, "
                 f"stale stages {list(self.stale_levels)}")
         lines = [head]
         for o in self.ops:
             layer = "-" if o.layer is None else o.layer
+            group = f" group={list(o.group)}" if o.group else ""
             lines.append(
                 f"{o.index:5d} {o.direction:8s} L{layer} {o.level or '-':5s} "
                 f"{o.kind:14s} {o.role or '-':7s} {o.dtype}{list(o.shape)} "
-                f"bytes/worker={o.bytes} chunks={o.chunks}")
+                f"bytes/worker={o.bytes} chunks={o.chunks}{group}")
         return "\n".join(lines) + "\n"
+
+
+@dataclass
+class RankPrograms:
+    """A lowered ``shard_map`` step: one :class:`LoweredStep` per rank, each
+    the rank's own program (``launch.spmd.ShardMapRuntime.lower_step``).
+    Its ops are read a rank at a time through :attr:`programs` (a
+    ``LoweredStep``'s ``programs`` is itself alone), so that a sum over
+    one program is a per-worker figure; ``collective_order`` holds a flag
+    only where it holds on every rank, and ``as_text`` prints each rank's
+    program."""
+
+    ranks: List[LoweredStep] = field(default_factory=list)
+    epoch: int = 0
+    nparts: int = 0
+    stale_levels: Tuple[str, ...] = ()
+
+    @property
+    def programs(self) -> Tuple[LoweredStep, ...]:
+        return tuple(self.ranks)
+
+    def collective_order(self) -> dict:
+        """Rank 0's :meth:`LoweredStep.collective_order` (the first failing
+        rank's where one fails), each flag the AND over the ranks, and
+        ``ranks``: every rank's flags."""
+        orders = [r.collective_order() for r in self.ranks]
+        if not orders:
+            return LoweredStep().collective_order()
+        flags = ("wire_before_compute", "inter_wire_before_compute",
+                 "inter_a2a_before_compute")
+        failing = [o for o in orders if not all(o[k] for k in flags)]
+        out = dict((failing or orders)[0])
+        out.update({k: all(o[k] for o in orders) for k in flags})
+        out["ranks"] = [{k: o[k] for k in flags} for o in orders]
+        return out
+
+    def as_text(self) -> str:
+        return "".join(r.as_text() for r in self.ranks)

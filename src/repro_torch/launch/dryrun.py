@@ -44,22 +44,25 @@ for the peak of live storages. A record keeps the JAX package's keys:
 
 **The GCN half** (``--gcn``). The JAX package lowers the production
 shard_map trainer against the full 256- (or 512-) device mesh. The
-port's shard_map is one process per worker (``launch.spmd``), which has
-no single step to record, so here the workers run stacked on the device
-(``exec.mode=vmap``; a ``shard_map`` spec is recorded as ``lowered_as:
-"vmap"``, as ``run.matrix`` does) and the "lowered module" is one recorded
-forward and backward, ``Session.lower()`` (``core.record.LoweredStep``).
-The record keeps the JAX package's fields: the spec and its content hash,
-the schedule, the predicted wire bytes per stage, the collective order
-(the overlap evidence), the recorded collectives by the ring table
-(``launch.hlo_stats``), the partition's ``CommStats``, and ``cost``
-(matmul FLOPs and bytes of the same forward and backward,
-``hlo_stats.analyze_step``). It adds ``predicted_hlo_wire_bytes``, the
-all-to-all bytes the recorded step must carry
-(``Session.predicted_hlo_wire_bytes``). ``memory`` is the peak
-``torch.cuda.max_memory_allocated`` of the session's build and recorded
-step above what was allocated before it, on the card; ``None`` on the
-CPU. ``--assert-overlap`` fails the record (exit 1) unless a stage
+port's shard_map is one process per worker (``launch.spmd``); its
+"lowered module" is every rank's own program, ``Session.lower()``
+(``core.record.RankPrograms``): each rank built in turn in this process
+and one forward, backward and gradient sum recorded on a world of the
+``fake`` backend, with no fleet started. A ``vmap`` spec records its
+stacked step instead. The record keeps the JAX package's fields: the
+spec and its content hash, the schedule, the predicted wire bytes per
+stage, the collective order (the overlap evidence; on every rank), the
+recorded collectives by the ring table (``launch.hlo_stats``; per
+worker, every collective a rank issues, so nothing is ``unrecorded``),
+the partition's ``CommStats``, and ``cost`` (matmul FLOPs and bytes of
+the same forward and backward, ``hlo_stats.analyze_step``: per worker,
+the mean over the ranks' steps; ``cost_basis`` says which). It adds
+``predicted_hlo_wire_bytes``, the all-to-all bytes each worker's record
+must carry (``Session.predicted_hlo_wire_bytes``), ``ranks`` and
+``all_to_all_bytes_per_rank`` (one entry for a stacked step). ``memory``
+is the peak ``torch.cuda.max_memory_allocated`` of the session's build and
+recorded steps above what was allocated before it, on the card; ``None``
+on the CPU. ``--assert-overlap`` fails the record (exit 1) unless a stage
 overlaps and the port's ``overlap-order`` audit rule finds no error.
 
 Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
@@ -437,8 +440,6 @@ def run_gcn_dryrun(spec: RunSpec, mesh_name: str = None, save: bool = True,
     G x (nparts/G) layout. The schedule section threads straight through.
     ``assert_overlap`` flips the record to error status unless the
     recorded step posts the wire before the local aggregation."""
-    from repro_torch.analysis.rules import STACKED_OVERRIDES
-
     groups = spec.partition.groups
     nparts = spec.partition.nparts
     gs = spec.graph
@@ -452,16 +453,12 @@ def run_gcn_dryrun(spec: RunSpec, mesh_name: str = None, save: bool = True,
     t0 = time.time()
     try:
         dev = torch.device(device)
-        build_spec = spec
-        if spec.exec.mode == "shard_map":
-            build_spec = spec.with_overrides(list(STACKED_OVERRIDES))
-            rec["lowered_as"] = "vmap"
         on_card = dev.type == "cuda"
         if on_card:
             torch.cuda.synchronize(dev)
             held = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        session = build_session(build_spec, device=dev)
+        session = build_session(spec, device=dev)
         try:
             rec["device"] = torch.cuda.get_device_name(dev) if on_card else str(dev)
             rec["agg_backend"] = spec.schedule.agg_backend
@@ -471,7 +468,23 @@ def run_gcn_dryrun(spec: RunSpec, mesh_name: str = None, save: bool = True,
             # all-to-alls carry every stage's wire, "total" of these.
             rec["predicted_hlo_wire_bytes"] = session.predicted_hlo_wire_bytes()
             t1 = time.time()
-            lowered = session.lower()
+            if spec.exec.mode == "shard_map":
+                # One lowering: each rank's step is recorded and counted.
+                costs = []
+
+                def counted(step):
+                    box = []
+                    costs.append(analyze_step(lambda: box.append(step())))
+                    return box[0]
+
+                lowered = session.trainer.lower_step(wrap=counted)
+                cost = {k: sum(c[k] for c in costs) / len(costs) for k in costs[0]}
+                rec["ranks"] = len(costs)
+                rec["cost_basis"] = "per worker: the mean of the rank programs' steps"
+            else:
+                lowered = session.lower()
+                cost = analyze_step(session.lower, lowered.epoch)
+                rec["cost_basis"] = "all workers: the stacked step"
             if on_card:
                 torch.cuda.synchronize(dev)
             rec["lower_s"] = round(time.time() - t1, 3)
@@ -483,8 +496,9 @@ def run_gcn_dryrun(spec: RunSpec, mesh_name: str = None, save: bool = True,
             rec["collective_order"] = dict(order, events=order["events"][:64],
                                            num_events=len(order["events"]))
             rec["collectives"] = parse_collectives(lowered)
+            rec["all_to_all_bytes_per_rank"] = [
+                sum(o.bytes for o in p.collectives("all-to-all")) for p in lowered.programs]
             rec["comm_stats"] = session.pg.stats.as_dict()
-            cost = analyze_step(session.lower, lowered.epoch)
             rec["cost"] = {"flops": cost["dot_flops"],
                            "bytes accessed": cost["traffic_bytes"]}
             print(f"  collective order: wire_before_compute="

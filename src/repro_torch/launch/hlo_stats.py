@@ -10,18 +10,21 @@ a callable, never text.
   the JAX package's dict shape. A recorded op's ``bytes`` is its result per
   worker and its ``chunks`` the group size g; the operand and ring wire
   bytes per worker follow the JAX package's table (the rows of the kinds
-  the port's exchange runs; it runs no all-reduce or
-  collective-permute)::
+  the port runs; it runs no collective-permute)::
 
     op                  operand bytes      ring wire bytes per device
     all-gather          result / g         result * (g-1)/g
+    all-reduce          result             result * 2(g-1)/g
     reduce-scatter      result * g         result * (g-1)
     all-to-all          result             result * (g-1)/g
 
-  The recorder's ``psum_scatter`` is a reduce-scatter and its
-  ``all_gather`` an all-gather. It does not see autograd's transposes of
-  the fp32 pre- and post-wire of a grouped stage (``core/record.py``): the
-  result says so under ``unrecorded`` and counts no bytes for them.
+  The recorder's ``psum_scatter`` is a reduce-scatter, its ``all_gather``
+  an all-gather and a rank's ``psum`` (the gradient sum) an all-reduce.
+  In a stacked step it does not see autograd's transposes of the fp32
+  pre- and post-wire of a grouped stage (``core/record.py``): the result
+  says so under ``unrecorded`` and counts no bytes for them. A
+  ``shard_map`` step's rank programs record every collective, and the
+  result is per worker: each field the most any rank moves.
 * :func:`collective_order` is ``LoweredStep.collective_order()``.
 * :func:`analyze_step` runs a callable once and counts its matmul FLOPs
   (``torch.utils.flop_counter.FlopCounterMode``) and the bytes of every
@@ -47,11 +50,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import traffic as kernel_traffic
 
-KINDS = ("all-gather", "reduce-scatter", "all-to-all")
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 # The recorder's collective kinds (core.record.COLLECTIVE_KINDS) under the
 # JAX package's names.
 RECORDED_AS = {"all-to-all": "all-to-all", "psum_scatter": "reduce-scatter",
-               "all_gather": "all-gather"}
+               "all_gather": "all-gather", "psum": "all-reduce"}
 _FIELDS = ("count", "operand_bytes", "result_bytes", "wire_bytes")
 UNRECORDED = ("the backward's transposes of a grouped stage's fp32 "
               "reduce-scatter and all-gather run inside autograd, which the "
@@ -64,6 +67,8 @@ def ring_bytes(kind: str, result: float, g: int) -> Tuple[float, float]:
     g = max(int(g), 1)
     if kind == "all-gather":
         return result / g, result * (g - 1) / g
+    if kind == "all-reduce":
+        return result, result * 2 * (g - 1) / g
     if kind == "reduce-scatter":
         return result * g, result * (g - 1)
     if kind == "all-to-all":
@@ -77,13 +82,25 @@ def _zero() -> Dict[str, Dict[str, float]]:
 
 def parse_collectives(lowered) -> dict:
     """``{kind: {count, operand_bytes, result_bytes, wire_bytes}}`` for
-    each kind the step ran, plus ``total``; per worker and step. A step
-    with a grouped stage adds ``unrecorded`` (module docstring)."""
+    each kind the step ran, plus ``total``; per worker and step. A stacked
+    step with a grouped stage adds ``unrecorded``; rank programs give each
+    field's most over the ranks (module docstring)."""
+    per_rank = [_parse_one(p) for p in lowered.programs]
+    out = per_rank[0]
+    for other in per_rank[1:]:
+        for kind, fields in other.items():
+            mine = out.setdefault(kind, dict(fields))
+            for f, v in fields.items():
+                mine[f] = max(mine[f], v)
+    return out
+
+
+def _parse_one(lowered) -> dict:
     acc = _zero()
     grouped = False
     for op in lowered.collectives():
         kind = RECORDED_AS[op.kind]
-        grouped = grouped or kind != "all-to-all"
+        grouped = grouped or kind in ("reduce-scatter", "all-gather")
         operand, wire = ring_bytes(kind, float(op.bytes), op.chunks or 1)
         acc[kind]["count"] += 1
         acc[kind]["operand_bytes"] += operand
@@ -92,7 +109,7 @@ def parse_collectives(lowered) -> dict:
     total = {f: sum(acc[k][f] for k in KINDS) for f in _FIELDS}
     out: dict = {k: v for k, v in acc.items() if v["count"]}
     out["total"] = total
-    if grouped:
+    if grouped and lowered.rank is None:
         out["unrecorded"] = UNRECORDED
     return out
 

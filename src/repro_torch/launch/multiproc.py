@@ -94,6 +94,7 @@ from repro_torch.checkpoint.ckpt import (
     latest_common_step,
     restore_train_state,
 )
+from repro_torch.core import exchange as X
 from repro_torch.core import model as M
 from repro_torch.core.exchange import (
     _timed_wire,
@@ -631,7 +632,8 @@ class _RankBase:
 
     COMMANDS = ("epoch", "eval", "summary", "state")
 
-    def __init__(self, rank: int, nprocs: int, manifest: dict):
+    def __init__(self, rank: int, nprocs: int, manifest: dict,
+                 views: Optional[Dict[str, np.ndarray]] = None):
         from repro_torch.run.spec import RunSpec
 
         self.rank, self.nprocs = rank, nprocs
@@ -647,11 +649,17 @@ class _RankBase:
         dev = self.device
         self.clock = {"wire_s": 0.0}  # host seconds in the wire
 
+        # ``views``: the partition arrays themselves, for a rank built in
+        # the process that holds them (launch.spmd's lowering); else the
+        # shared store's.
         self.rss_before_attach = rss_bytes()
-        self.arena = ShmArena.attach(manifest["store"]["name"],
-                                     manifest["store"]["table"])
+        self.arena = None
+        if views is None:
+            self.arena = ShmArena.attach(manifest["store"]["name"],
+                                         manifest["store"]["table"])
         self._connect(manifest)
-        views = self.arena.views()
+        if views is None:
+            views = self.arena.views()
         self.rss_after_attach = rss_bytes()
 
         # Move only this rank's slices of the shared store to the device.
@@ -754,6 +762,8 @@ class _RankBase:
         new_cache: List[Tuple[torch.Tensor, ...]] = []
 
         def agg_fn(l: int, h: torch.Tensor) -> torch.Tensor:
+            if X.RECORDER is not None:
+                X.RECORDER.layer = l
             noise = None
             if train:
                 noise = lambda si, backward, shape: rnd.quant_uniform(
@@ -789,11 +799,10 @@ class _RankBase:
             return self.state()
         return self.summary()
 
-    def train_epoch(self) -> dict:
-        self._before_epoch()
-        t0 = time.perf_counter()
-        launched0 = launch_counts()
-        c0 = self._counters()
+    def _grad_step(self) -> Tuple[torch.Tensor, List]:
+        """The epoch's forward, backward and gradient sum: (the summed flat
+        gradient with the loss sum, correct count and loss count behind
+        it, the new halo cache). No state changes."""
         cfg, wd, rnd, dev, epoch = self.cfg, self.wd, self.randomness, self.device, self.epoch
         if cfg.label_prop:
             sel = self._stacked(lambda s: rnd.lp_select(epoch, s, cfg.lp_rate, dev),
@@ -805,8 +814,7 @@ class _RankBase:
         # The global loss count before the backward, so each rank's
         # gradient is its share of the global mean loss's.
         cnt_local = loss_mask.to(torch.float32).sum().reshape(1)
-        gcnt = float(self._allreduce("t.cnt", cnt_local)[0])
-        denom = torch.tensor(max(gcnt, 1.0), device=dev)
+        denom = torch.clamp(self._allreduce("t.cnt", cnt_local)[0], min=1.0)
         params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
         logits, cache = self._forward(params, prop_mask, True, "t", self.cache, epoch)
         ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
@@ -815,7 +823,14 @@ class _RankBase:
         vec = torch.cat([_flat(grads).detach(),
                          torch.stack([ls.sum(), correct.sum(), cnt.sum()]).detach()
                          .to(torch.float32)])
-        gsum = self._allreduce("t.grads", vec)
+        return self._allreduce("t.grads", vec), cache
+
+    def train_epoch(self) -> dict:
+        self._before_epoch()
+        t0 = time.perf_counter()
+        launched0 = launch_counts()
+        c0 = self._counters()
+        gsum, cache = self._grad_step()
         host = gsum.cpu().numpy()
         grad_norm = float(np.sqrt(np.square(host[:-3], dtype=np.float64).sum()))
         grads = _unflat(gsum[:-3], self.params)
@@ -874,7 +889,8 @@ class _RankBase:
         return out
 
     def close(self) -> None:
-        self.arena.close()
+        if self.arena is not None:
+            self.arena.close()
 
 
 class _RankWorker(_RankBase):

@@ -42,6 +42,16 @@ directory, so sessions built at once never meet.
 There is no respawn, as there is none in the JAX package's ``shard_map``:
 a rank that fails makes the runtime raise, after it has stopped every
 rank, unlinked the store and removed the rendezvous directory.
+
+Lowering (``ShardMapRuntime.lower_step``, behind ``Session.lower()``)
+starts no fleet: the parent builds each rank in turn from the partition
+arrays it holds, in a world of torch's ``fake`` backend (its collectives
+move no data), and records the rank's forward and backward under
+``core.exchange.recording``. The result, ``core.record.RankPrograms``, is
+every rank's own program with the process group of each collective: what
+the auditor, the spec matrix and the GCN dry-run read, as the JAX
+package's read the lowered ``shard_map`` module. The values of such a
+step are meaningless; only the record is kept.
 """
 
 from __future__ import annotations
@@ -51,13 +61,15 @@ import multiprocessing as mp
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import exchange as X
 from repro_torch.core.exchange import CollectiveWire, _timed_wire
 from repro_torch.core.randomness import GeneratorRandomness
+from repro_torch.core.record import LoweredStep, RankPrograms
 from repro_torch.launch.mesh import Mesh, make_hier_worker_mesh, make_worker_mesh, mesh_groups
 from repro_torch.launch.multiproc import (
     _PARENT_WAIT_S,
@@ -82,18 +94,18 @@ def worker_mesh(dc) -> Mesh:
     return make_worker_mesh(dc.nparts, axis=dc.axis_name)
 
 
-def resolve_backend(device: torch.device, backend: Optional[str], nprocs: int
-                    ) -> tuple:
+def resolve_backend(device: torch.device, backend: Optional[str], nprocs: int,
+                    check_cards: bool = True) -> tuple:
     """(backend, the device of each rank). NCCL puts rank r on ``cuda:r``
-    and raises unless ``nprocs`` cards are visible; gloo keeps every rank
-    on ``device``."""
+    and raises unless ``nprocs`` cards are visible (``check_cards``); gloo
+    keeps every rank on ``device``."""
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError(f"backend 'nccl' needs a CUDA device, not {device}")
         visible = torch.cuda.device_count()
-        if visible < nprocs:
+        if check_cards and visible < nprocs:
             raise RuntimeError(
                 f"exec.mode=shard_map over NCCL runs one rank per card: "
                 f"{nprocs} ranks (partition.nparts) need {nprocs} visible cards, "
@@ -141,6 +153,9 @@ class _SpmdRank(_RankBase):
         import torch.distributed as dist
 
         vec = vec.contiguous()
+        if X.RECORDER is not None:
+            with X.RECORDER.scoped((None, "")):
+                CollectiveWire._note("psum", vec, dist.group.WORLD, self.nprocs)
         parts = torch.empty((self.nprocs, vec.numel()), dtype=vec.dtype,
                             device=vec.device)
         self.clock["wire_bytes"] += self.nprocs * vec.numel() * vec.element_size()
@@ -178,6 +193,69 @@ class _SpmdRank(_RankBase):
         super().close()
 
 
+class _LowerRank(_SpmdRank):
+    """A rank that the parent builds to record its program
+    (:meth:`ShardMapRuntime.lower_step`): the runtime's own partition
+    arrays, the runtime's device for every rank, and a world on torch's
+    ``fake`` backend, whose collectives return at once and move no data."""
+
+    def _device_name(self, manifest: dict) -> str:
+        return manifest["device"]
+
+    def _connect(self, manifest: dict) -> None:
+        import torch.distributed as dist
+
+        try:
+            from torch.testing._internal.distributed.fake_pg import FakeStore
+
+            dist.init_process_group("fake", store=FakeStore(), rank=self.rank,
+                                    world_size=self.nprocs)
+        except Exception as e:  # noqa: BLE001 — say why, never fall back
+            raise RuntimeError(
+                "lowering a shard_map step needs torch.distributed's 'fake' "
+                f"backend, which did not open: {type(e).__name__}: {e}") from e
+        d = manifest["dist"]
+        self.groups = mesh_groups(Mesh(tuple(d["axes"]), tuple(d["sizes"])), self.rank)
+        self.clock.update(wait_s=0.0, wire_bytes=0)
+
+    def lower(self, epoch: int, wrap: Optional[Callable] = None) -> LoweredStep:
+        """This rank's forward, backward and gradient sum at ``epoch``'s
+        draws under the recorder, with no update. ``wrap(step)`` runs the
+        step (a callable that returns the recorder) for a caller that
+        measures it."""
+        self.epoch = epoch
+
+        def step():
+            with X.recording(rank=self.rank) as rec:
+                self._grad_step()
+            return rec
+
+        rec = step() if wrap is None else wrap(step)
+        stale = tuple(s.level for s in self.schedule.stages if s.delayed and epoch % s.cd)
+        return LoweredStep(ops=rec.ops, epoch=epoch, nparts=self.nprocs,
+                           stale_levels=stale, rank=self.rank)
+
+
+def check_one_program(programs: Sequence[LoweredStep]) -> None:
+    """Raise, naming the first differing op, unless every rank issues the
+    same ops (``StepOp.program_key``: kind, direction, layer, level, role,
+    dtype, group size). The JAX package's program is one for every
+    device; ranks that disagree would leave their peers waiting."""
+    if not programs:
+        return
+    first = programs[0]
+    for prog in programs[1:]:
+        for i, (a, b) in enumerate(zip(first.ops, prog.ops)):
+            if a.program_key() != b.program_key():
+                raise RuntimeError(
+                    f"shard_map lowering: rank {prog.rank}'s op {i} differs from rank "
+                    f"{first.rank}'s: {b.program_key()} against {a.program_key()}")
+        if len(prog.ops) != len(first.ops):
+            raise RuntimeError(
+                f"shard_map lowering: rank {prog.rank} records {len(prog.ops)} ops, "
+                f"rank {first.rank} {len(first.ops)}")
+
+
 class ShardMapRuntime(_Fleet):
     """P processes, one per worker, over one shared graph store and
     ``torch.distributed`` collectives: the trainer-shaped runtime behind
@@ -191,8 +269,10 @@ class ShardMapRuntime(_Fleet):
 
     Lazy: the store is published and the ranks spawn on the first
     command. On the card the parent builds the kernels before it spawns.
-    A rank's error, or its death, stops the run: every rank is stopped,
-    the store unlinked, and ``RuntimeError`` raised.
+    NCCL's card count is checked then too: :meth:`lower_step` needs no
+    fleet, and records every rank on ``device``. A rank's error, or its
+    death, stops the run: every rank is stopped, the store unlinked, and
+    ``RuntimeError`` raised.
     """
 
     mode = "shard_map"
@@ -207,7 +287,8 @@ class ShardMapRuntime(_Fleet):
                 f"shard_map runs one process per partition: exec.nprocs "
                 f"{spec.exec.nprocs} != partition.nparts {self.nprocs}")
         self.device = torch.device(device)
-        self.backend, self.devices = resolve_backend(self.device, backend, self.nprocs)
+        self.backend, self.devices = resolve_backend(self.device, backend, self.nprocs,
+                                                     check_cards=False)
         self.dc = spec.schedule.to_dist_config(spec.partition, lr=spec.exec.lr)
         self.schedule = self.dc.schedule()
         self.cfg = spec.model.to_gcn_config(spec.graph, spec.schedule)
@@ -230,6 +311,7 @@ class ShardMapRuntime(_Fleet):
     def _ensure_started(self) -> None:
         if self._started:
             return
+        resolve_backend(self.device, self.backend, self.nprocs)
         if self.device.type == "cuda":
             from repro_torch.kernels.build import build_all
             build_all()
@@ -311,11 +393,42 @@ class ShardMapRuntime(_Fleet):
             out["ranks"] = self._command({"cmd": "summary"}, "summary")
         return out
 
-    def lower_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "mode='shard_map' runs eagerly across processes; there is no "
-            "single lowered step (the auditor lowers a shard_map spec as its "
-            "stacked variant)")
+    def lower_step(self, epoch: Optional[int] = None,
+                   wrap: Optional[Callable] = None) -> RankPrograms:
+        """Every rank's own training step at ``epoch``'s draws (default: the
+        next epoch's), recorded one rank after another in this process on
+        ``device``, in a world of the ``fake`` backend (module docstring):
+        no fleet starts and no state changes. Each rank is built from the
+        runtime's partition arrays, then its forward, backward and
+        gradient sum run (``wrap(step)`` runs them, for a caller that
+        measures the step alone: the GCN dry-run counts its FLOPs). Raises
+        if the ranks' programs differ (:func:`check_one_program`) or the
+        ``fake`` backend does not open."""
+        import torch.distributed as dist
+
+        e = self.epoch if epoch is None else int(epoch)
+        if dist.is_initialized():
+            raise RuntimeError("lowering a shard_map step opens a world of its own; "
+                               "this process is already in one")
+        manifest = {"spec": self.spec.to_dict(), "meta": self._meta,
+                    "device": str(self.device), "randomness": self._randomness,
+                    "params": self._params,
+                    "dist": {"axes": list(self.mesh.axis_names),
+                             "sizes": list(self.mesh.sizes)}}
+        programs: List[LoweredStep] = []
+        for r in range(self.nprocs):
+            rank = None
+            try:
+                rank = _LowerRank(r, self.nprocs, manifest, views=self._arrays)
+                programs.append(rank.lower(e, wrap))
+            finally:
+                if rank is not None:
+                    rank.close()
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        check_one_program(programs)
+        return RankPrograms(ranks=programs, epoch=e, nparts=self.nprocs,
+                            stale_levels=programs[0].stale_levels)
 
     # -- checkpoint/resume -------------------------------------------------
 

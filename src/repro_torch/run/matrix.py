@@ -9,9 +9,9 @@ runs the plain PyTorch path):
 
 * a stacked spec: ``build_session(spec).lower()`` — partition, plans,
   trainer, and one recorded forward and backward on the device;
-* a ``shard_map`` spec: the same through its stacked variant
-  (``exec.mode=vmap``; recorded as ``lowered_as``), since its own run is
-  one process per worker with no single recorded step;
+* a ``shard_map`` spec: ``build_session(spec).lower()``, every rank's
+  own program recorded in this process (no fleet; ``ranks`` in the
+  record, and ``lowered_ops`` a count per rank);
 * a multiproc spec: the shared store and mailbox accounting
   (``dry_plan``), no processes;
 * a serving spec: ``build_server`` and a burst of 4 requests, the served
@@ -90,10 +90,6 @@ def run_matrix(spec_dir: Path, compile_step: bool = False, device="cuda",
                 spec = RunSpec.load(path)
                 rec["hash"] = spec.content_hash()
                 rec["describe"] = spec.describe()
-                if spec.exec.mode == "shard_map":
-                    from repro_torch.analysis.rules import STACKED_OVERRIDES
-                    spec = spec.with_overrides(list(STACKED_OVERRIDES))
-                    rec["lowered_as"] = "vmap"
                 session = build_session(spec, device=device)
                 try:
                     if spec.exec.mode == "multiproc":
@@ -101,7 +97,13 @@ def run_matrix(spec_dir: Path, compile_step: bool = False, device="cuda",
                         # is the shared-store + mailbox accounting.
                         rec["store"] = session.trainer.dry_plan()
                     else:
-                        rec["lowered_ops"] = len(session.lower().ops)
+                        lowered = session.lower()
+                        if spec.exec.mode == "shard_map":
+                            # Ops per rank: each rank's own program.
+                            rec["ranks"] = len(lowered.programs)
+                            rec["lowered_ops"] = [len(p.ops) for p in lowered.programs]
+                        else:
+                            rec["lowered_ops"] = len(lowered.ops)
                 finally:
                     session.close()
         except Exception as e:
@@ -114,8 +116,8 @@ def run_matrix(spec_dir: Path, compile_step: bool = False, device="cuda",
             tag = rec["status"].upper()
             line = (f"[{tag}] {rec['spec']:32s} {rec.get('hash', '-'):16s} "
                     f"({rec['elapsed_s']}s)")
-            if "lowered_as" in rec:
-                line += f" lowered_as={rec['lowered_as']}"
+            if "ranks" in rec:
+                line += f" ranks={rec['ranks']}"
             if rec["status"] == "error":
                 line += f" :: {rec['error']}"
             print(line, flush=True)

@@ -7,7 +7,8 @@ port's training stack (counterpart of ``repro.run.session``).
 
 runs here once, stage by stage, and returns a :class:`Session` with the
 operations the launchers perform: ``fit`` / ``train_epoch`` / ``evaluate``,
-``lower`` (the recorded step the auditor reads) and the accounting
+``lower`` (the recorded step the auditor reads; a ``shard_map`` session's
+is every rank's own program) and the accounting
 (``comm_stats``, ``partition_stats``, ``predicted_wire_bytes``,
 ``predicted_hlo_wire_bytes``). ``build_graph`` and ``build_partition``
 are public, as there; serving uses them too, and :class:`BuildCache`
@@ -262,10 +263,14 @@ class Session:
         return self.trainer.evaluate()
 
     def lower(self, epoch: Optional[int] = None):
-        """One training step recorded (``core.record.LoweredStep``): runs a
-        forward and backward on the session's device and changes no state
-        (``DistributedTrainer.lower_step``). Multiproc raises: it has no
-        single step."""
+        """One training step recorded, changing no state: a forward and
+        backward on the session's device. Stacked: the step of all workers
+        (``core.record.LoweredStep``, ``DistributedTrainer.lower_step``).
+        ``shard_map``: every rank's own program with the process group of
+        each collective (``core.record.RankPrograms``,
+        ``ShardMapRuntime.lower_step``), recorded in this process on the
+        ``fake`` backend with no fleet started. Multiproc raises: it has
+        no single step."""
         return self.trainer.lower_step(epoch)
 
     def close(self) -> None:
@@ -335,7 +340,8 @@ class Session:
         """Distinct step signatures among the epochs trained while the step
         recorder was on (eager PyTorch's count of compiled executables; the
         auditor's ``retrace-guard`` reads it). None under multiproc, which
-        has no single step."""
+        has no single step, and under shard_map, whose ranks' signatures
+        the rule counts over their lowered programs."""
         sigs = getattr(self.trainer, "step_signatures", None)
         return None if sigs is None else len(sigs)
 

@@ -137,7 +137,11 @@ class _StubSession:
 
 
 def _ctx(step, signatures=2, spec_path=FLAGSHIP):
-    ctx = AuditContext(RunSpec.load(spec_path), spec_name="fixture", device="cpu")
+    """A context for a stacked step: the spec's vmap variant (a
+    shard_map spec is audited on its ranks' programs,
+    ``tests/test_torch_shard_map_lower.py``)."""
+    spec = RunSpec.load(spec_path).with_overrides(["exec.mode=vmap", "exec.nprocs=0"])
+    ctx = AuditContext(spec, spec_name="fixture", device="cpu")
     ctx._lowered = step
     ctx._predicted = PREDICTED
     ctx._session = _StubSession(signatures)
@@ -253,12 +257,20 @@ class TestSkipsAndContext:
         res = run_rules(ctx, rule_ids=STRUCTURAL)
         assert sorted(res["ran"]) == sorted(STRUCTURAL)
         assert res["skipped"] == [] and res["findings"] == []
-        assert ctx.lowered_as == ""
+        assert ctx.lowered.rank is None and ctx.lowered.programs == (ctx.lowered,)
 
     def test_shard_map_spec_builds_its_stacked_variant(self):
+        """No longer: a shard_map spec's context builds the spec itself and
+        reads its ranks' own programs, with their process groups."""
         ctx = AuditContext(RunSpec.load(FLAGSHIP), device="cpu")
-        assert ctx.lowered_as == "vmap"
-        assert ctx.build_spec.exec.mode == "vmap" and ctx.spec.exec.mode == "shard_map"
+        try:
+            assert ctx.session.trainer.mode == "shard_map"
+            progs = ctx.lowered.programs
+            assert [p.rank for p in progs] == list(range(8))
+            assert all(o.group for p in progs for o in p.collectives())
+            assert not ctx.session.trainer._started       # no fleet
+        finally:
+            ctx.close()
 
     def test_multiproc_spec_skips_all_step_rules(self):
         d = json.loads(FLAGSHIP.read_text())
@@ -399,7 +411,7 @@ def test_flagship_audits_clean_end_to_end():
     assert res["rule_errors"] == []
     assert [str(f) for f in res["findings"]] == []
     assert sorted(res["ran"]) == sorted(ALL_RULES)
-    assert res["skipped"] == [] and res["lowered_as"] == "vmap"
+    assert res["skipped"] == [] and res["ranks"] == 8      # the rank programs
 
 
 @pytest.mark.parametrize("name", ["flat_fp32", "hier_int2_inter",
@@ -546,11 +558,16 @@ def test_matrix_on_cpu(matrix_cli):
     _, _, recs = matrix_cli
     assert [r["status"] for r in recs] == ["ok"] * 8, [r.get("error") for r in recs]
     by = {r["spec"]: r for r in recs}
-    assert {n for n, r in by.items() if r.get("lowered_as") == "vmap"} == \
-        {"flagship_hier_int2_overlap.json", "shard_map.json"}
+    assert {n: r["ranks"] for n, r in by.items() if "ranks" in r} == \
+        {"flagship_hier_int2_overlap.json": 8, "shard_map.json": 4}
+    assert not any("lowered_as" in r for r in recs)
     assert by["multiproc_p4.json"]["store"]["store_bytes"] > 0
     assert by["serve_flagship.json"]["served"] == 4
-    assert all(r["lowered_ops"] > 0 for r in recs if "lowered_ops" in r)
+    for r in recs:
+        if "ranks" in r:        # a rank program's own op count per rank
+            assert len(r["lowered_ops"]) == r["ranks"] and min(r["lowered_ops"]) > 0
+        elif "lowered_ops" in r:
+            assert r["lowered_ops"] > 0
 
 
 def test_audit_and_matrix_clis_exit_zero_on_cpu(tmp_path, matrix_cli):

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.serve_products_paper import FLAGSHIP
 from repro_torch.graph.structure import bucketed_ell_from_csr, coo_to_csr
+from repro_torch.kernels import quant_pack as qp
 from repro_torch.kernels import seg_aggregate as sa
 from repro_torch.kernels.ops import padded_device_bucketed
 from repro_torch.kernels.ref import seg_aggregate_ref
@@ -512,18 +513,42 @@ def test_coo_backend_repeats_and_resumes_bitwise(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_flagship_audit_clean_on_card(cuda):
-    """The flagship spec's recorded step on the card passes all five rules
-    (through its stacked variant), with the kernels on its path launched."""
+    """The flagship spec's ranks' programs, recorded on the card, pass all
+    five rules, with the kernels on their path launched."""
     from repro_torch.analysis.audit import audit_spec
     from repro_torch.run import RunSpec
 
     root = Path(__file__).resolve().parents[1]
-    before = (sa.launches, sa.backward_launches)
+    before = (sa.launches, sa.backward_launches, qp.pack_launches, qp.unpack_launches)
     res = audit_spec(RunSpec.load(root / "specs" / "flagship_hier_int2_overlap.json"),
                      steps=2, device=cuda)
     assert [str(f) for f in res["findings"]] == [] and res["rule_errors"] == []
-    assert len(res["ran"]) == 5 and res["lowered_as"] == "vmap"
-    assert sa.launches > before[0] and sa.backward_launches > before[1]
+    assert len(res["ran"]) == 5 and res["ranks"] == 8
+    after = (sa.launches, sa.backward_launches, qp.pack_launches, qp.unpack_launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+@pytest.mark.gpu
+def test_shard_map_rank_programs_on_card_equal_the_cpus(cuda):
+    """The hierarchical flagship spec's rank programs lowered on the card
+    (no fleet: the ``fake`` backend, every rank on this card) record, op
+    for op, what the CPU's lowering records: kind, direction, layer,
+    level, role, shape, dtype, bytes and group."""
+    from repro_torch.run import RunSpec, build_session
+
+    root = Path(__file__).resolve().parents[1]
+    spec = RunSpec.load(root / "specs" / "flagship_hier_int2_overlap.json")
+    lowered = {}
+    for dev in (cuda, "cpu"):
+        with build_session(spec, device=dev) as s:
+            lowered[str(dev)] = s.lower()
+    card, cpu = lowered[str(cuda)], lowered["cpu"]
+    assert len(card.programs) == len(cpu.programs) == 8
+    key = lambda o: (o.kind, o.direction, o.layer, o.level, o.role, o.shape, o.dtype,
+                     o.bytes, o.chunks, o.group)
+    for a, b in zip(card.programs, cpu.programs):
+        assert a.rank == b.rank and [key(o) for o in a.ops] == [key(o) for o in b.ops]
+    assert card.collective_order()["inter_a2a_before_compute"]
 
 
 @pytest.mark.gpu

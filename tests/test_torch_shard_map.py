@@ -208,6 +208,16 @@ class TestAgainstMultiproc:
             refresh, stale = per_epoch[0], per_epoch[1]
             assert stale < refresh and per_epoch == [refresh, stale, refresh, stale]
 
+    def test_lowered_bytes_equal_a_real_ranks_wire_bytes(self, hier_run):
+        """``Session.lower()`` records, per rank, what the rank's collectives
+        deliver in a refresh epoch (``LoweredStep.wire_bytes``: every
+        recorded collective, an all_gather's copies counted as
+        ``CollectiveWire`` counts them) — the gloo rank's own count."""
+        with build_session(RunSpec().with_overrides(HIER + SM), device="cpu") as s:
+            progs = s.lower(epoch=0).programs
+        real = hier_run["shard_map_stats"][0]["wire_bytes"]
+        assert [p.wire_bytes() for p in progs] == real
+
     def test_ranks_report_epoch_stats(self, hier_run):
         """wait_s within wire_s within the epoch; no launches on the CPU."""
         for s in hier_run["shard_map_stats"]:
@@ -295,13 +305,17 @@ class TestRuntime:
 
     def test_nccl_needs_a_card_per_rank(self, monkeypatch):
         """NCCL runs rank r on cuda:r: more ranks than visible cards raise,
-        naming both counts; NCCL on the CPU and unknown backends raise."""
+        naming both counts, when the fleet is to start (lowering starts
+        none, so the runtime builds); NCCL on the CPU and unknown backends
+        raise."""
         spec = RunSpec().with_overrides(SMALL + ["partition.nparts=4"])
         g, x = build_graph(spec)
         hwd = prepare_distributed_host(g, x, build_partition(spec, g))
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        rt = spmd.ShardMapRuntime(spec, hwd, device="cuda")
         with pytest.raises(RuntimeError, match="4 ranks .* need 4 visible cards, 2 are"):
-            spmd.ShardMapRuntime(spec, hwd, device="cuda")
+            rt._ensure_started()
+        assert not rt._started and rt._procs == []
         with pytest.raises(ValueError, match="needs a CUDA device"):
             spmd.ShardMapRuntime(spec, hwd, device="cpu", backend="nccl")
         with pytest.raises(ValueError, match="'nccl' or 'gloo'"):
@@ -339,10 +353,23 @@ class TestRuntime:
             build_session(RunSpec().with_overrides(SMALL + ["exec.mode=vmap"]),
                           device="cpu", backend="gloo")
 
-    def test_lower_step_raises(self):
+    def test_lower_step_raises(self, monkeypatch):
+        """Lowering opens a world of its own: inside another it raises, and
+        so do ranks whose programs differ (``check_one_program``). Neither
+        building nor lowering spawns anything."""
+        import torch.distributed as dist
+
         with build_session(RunSpec().with_overrides(SMALL), device="cpu") as s:
-            with pytest.raises(NotImplementedError, match="stacked variant"):
-                s.lower()
+            progs = s.lower().programs
+            with monkeypatch.context() as m:
+                m.setattr(dist, "is_initialized", lambda: True)
+                with pytest.raises(RuntimeError, match="already in one"):
+                    s.lower()
+            bad = dataclasses.replace(progs[1], ops=[
+                dataclasses.replace(o, group=(1,)) if o.kind == "psum" else o
+                for o in progs[1].ops])
+            with pytest.raises(RuntimeError, match="rank 1's op 0 differs from rank 0's"):
+                spmd.check_one_program([progs[0], bad])
             assert not s.trainer._started   # building spawns nothing
 
 
