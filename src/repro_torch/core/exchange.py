@@ -47,7 +47,16 @@ process per worker (``exec.mode=shard_map``, ``launch.spmd``).
 The step recorder (:func:`recording`) is off unless a caller switches it
 on around a step: ``DistributedTrainer.lower_step`` does, for the
 auditor. Then every wire op and aggregation of this module notes itself
-(``core.record.StepRecorder``); off, each hook costs one ``None`` check.
+(``core.record.StepRecorder``, through :func:`_note`); off, each hook
+costs one ``None`` check. The spans (``core.record.span``, ``gnn.exchange.*``)
+time the same sites while torch's profiler records: the layer's ``issue``
+and ``finalize``, each stage's ``send`` (``assemble`` with its
+``send_gather`` and ``pre_aggregate``, then the ``wire``: ``pre_wire``,
+``a2a`` or ``quantized`` with ``quantize`` and ``dequantize``,
+``post_wire``) and ``scatter``. The autograd nodes of the send gather,
+the aggregation kernel and the two wire Functions are hooked
+(``core.record.backward_of``), so their backward opens the same span
+again, direction backward.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.record import StepRecorder
+from repro_torch.core.record import StepRecorder, backward_of, indexed, span
 from repro_torch.graph import structure as gstruct
 from repro_torch.kernels import seg_aggregate as segagg
 from repro_torch.kernels.quant_pack import dequant_unpack, quant_pack
@@ -93,6 +102,13 @@ def recording(rank: Optional[int] = None):
         RECORDER = prev
 
 
+def _note(kind: str, out, **kw) -> None:
+    """Note ``kind`` producing ``out`` when something records
+    (``core.record.StepRecorder.note``)."""
+    if RECORDER is not None:
+        RECORDER.note(kind, out, **kw)
+
+
 def _backward_scope(scope, direction: str = "backward"):
     """The recorder's scope for a backward op whose forward op was recorded
     in ``scope`` (a no-op context when nothing records); ``direction``
@@ -107,10 +123,15 @@ def _backward_scope(scope, direction: str = "backward"):
 # --------------------------------------------------------------------------
 
 
-def _take(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``h[p][idx[p]]`` for every worker: [P, N, F] x [P, K] -> [P, K, F]."""
+def _take(h: torch.Tensor, idx: torch.Tensor, name: Optional[str] = None
+          ) -> torch.Tensor:
+    """``h[p][idx[p]]`` for every worker: [P, N, F] x [P, K] -> [P, K, F].
+    ``name``: the span of the gather and of its backward
+    (``core.record.indexed``)."""
     p, n, f = h.shape
-    return h.reshape(p * n, f)[segagg.flat_rows(idx, n).reshape(-1)].reshape(p, -1, f)
+    flat, rows = h.reshape(p * n, f), segagg.flat_rows(idx, n).reshape(-1)
+    out = flat[rows] if name is None else indexed(flat, rows, name)
+    return out.reshape(p, -1, f)
 
 
 def _index_add(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
@@ -252,18 +273,19 @@ def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan,
     backward, in a fixed order; ``"coo"`` adds them in edge order
     (:func:`_index_add`).
     """
-    raw = torch.where(plan.send_gather_mask[..., None],
-                      _take(h, plan.send_gather_idx), 0.0)
-    if agg_backend == "ell" and plan.pre_ell is not None:
-        kind = "seg_aggregate"
-        out = raw + segagg.bucketed_aggregate(h, plan.pre_ell, raw.shape[-2],
-                                              ell_t=plan.pre_ell_t)
-    else:
-        kind = "index_add"
-        out = _index_add(raw, plan.pre_slot,
-                         plan.pre_weight[..., None] * _take(h, plan.pre_src))
-    if RECORDER is not None:
-        RECORDER.note(kind, out, role="send")
+    with span("gnn.exchange.assemble", role="send"):
+        raw = torch.where(plan.send_gather_mask[..., None],
+                          _take(h, plan.send_gather_idx, "gnn.exchange.send_gather"), 0.0)
+        with span("gnn.exchange.pre_aggregate"):
+            if agg_backend == "ell" and plan.pre_ell is not None:
+                kind = "seg_aggregate"
+                out = raw + backward_of(segagg.bucketed_aggregate(
+                    h, plan.pre_ell, raw.shape[-2], ell_t=plan.pre_ell_t))
+            else:
+                kind = "index_add"
+                out = _index_add(raw, plan.pre_slot,
+                                 plan.pre_weight[..., None] * _take(h, plan.pre_src))
+    _note(kind, out, role="send")
     return out
 
 
@@ -277,14 +299,13 @@ def scatter_recv(acc: torch.Tensor, recv: torch.Tensor, plan: DeviceHaloPlan,
     """
     if agg_backend == "ell" and plan.recv_ell is not None:
         kind = "seg_aggregate"
-        out = acc + segagg.bucketed_aggregate(
-            recv, plan.recv_ell, acc.shape[-2], ell_t=plan.recv_ell_t)
+        out = acc + backward_of(segagg.bucketed_aggregate(
+            recv, plan.recv_ell, acc.shape[-2], ell_t=plan.recv_ell_t))
     else:
         kind = "index_add"
         out = _index_add(acc, plan.recv_dst,
                          plan.recv_weight[..., None] * _take(recv, plan.recv_row))
-    if RECORDER is not None:
-        RECORDER.note(kind, out, role="recv")
+    _note(kind, out, role="recv")
     return out
 
 
@@ -324,8 +345,7 @@ def _wire_a2a(v: torch.Tensor, topo: StageTopo, role: str = "payload"
     g, w = topo.lead
     y = v.reshape(g, w, topo.wire_chunks, -1, v.shape[-1])
     out = y.transpose(topo.wire_dim, 2).reshape(v.shape)
-    if RECORDER is not None:
-        RECORDER.note("all-to-all", out, chunks=topo.wire_chunks, role=role)
+    _note("all-to-all", out, chunks=topo.wire_chunks, role=role)
     return out
 
 
@@ -359,12 +379,12 @@ def _pre_wire(x: torch.Tensor, topo: StageTopo) -> torch.Tensor:
     # Per-group aggregation: partials destined for the same remote row merge
     # here (summed over the group's workers in rank order), and the group
     # buffer lands sharded 1/W per worker.
-    acc = y[:, 0]
-    for r in range(1, w):
-        acc = acc + y[:, r]                              # [G, C, W, s, F]
-    out = acc.transpose(1, 2).reshape(g * w, topo.wire_chunks * s, feat)
-    if RECORDER is not None:
-        RECORDER.note("psum_scatter", out, chunks=topo.shard_size)
+    with span("gnn.exchange.pre_wire"):
+        acc = y[:, 0]
+        for r in range(1, w):
+            acc = acc + y[:, r]                          # [G, C, W, s, F]
+        out = acc.transpose(1, 2).reshape(g * w, topo.wire_chunks * s, feat)
+    _note("psum_scatter", out, chunks=topo.shard_size)
     return out
 
 
@@ -377,9 +397,9 @@ def _post_wire(y: torch.Tensor, topo: StageTopo) -> torch.Tensor:
     s = y.shape[1] // topo.wire_chunks
     recv = y.reshape(g, w, topo.wire_chunks, s, feat).transpose(1, 2)  # [G, C, W, s, F]
     full = recv.unsqueeze(1).expand(g, w, topo.wire_chunks, w, s, feat)
-    out = full.reshape(g * w, topo.wire_chunks * w * s, feat)
-    if RECORDER is not None:
-        RECORDER.note("all_gather", out, chunks=topo.shard_size)
+    with span("gnn.exchange.post_wire"):
+        out = full.reshape(g * w, topo.wire_chunks * w * s, feat)
+    _note("all_gather", out, chunks=topo.shard_size)
     return out
 
 
@@ -395,19 +415,20 @@ def _quantized_wire(v: torch.Tensor, u: torch.Tensor, topo: StageTopo,
     if rows % ROW_GROUP:
         raise ValueError(f"wire buffer of {rows} rows per worker is not a "
                          f"multiple of the quant row group ({ROW_GROUP})")
-    packed, zero, scale = quant_pack(v.reshape(p * rows, feat),
-                                     u.reshape(p * rows, feat), bits)
+    with span("gnn.exchange.quantize"):
+        packed, zero, scale = quant_pack(v.reshape(p * rows, feat),
+                                         u.reshape(p * rows, feat), bits)
     packed = packed.reshape(p, rows, -1)
-    if RECORDER is not None:
-        RECORDER.note("quant_pack", packed)
-    qr = _wire_a2a(packed, topo)
-    # fp32 (zero, scale) ride along — the paper's "params" wire term (Eqn 5).
-    zr = _wire_a2a(zero.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
-    sr = _wire_a2a(scale.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
-    out = dequant_unpack(qr.reshape(p * rows, -1), zr.reshape(-1),
-                         sr.reshape(-1), bits, feat).reshape(p, rows, feat)
-    if RECORDER is not None:
-        RECORDER.note("dequant_unpack", out)
+    _note("quant_pack", packed)
+    with span("gnn.exchange.a2a"):
+        qr = _wire_a2a(packed, topo)
+        # fp32 (zero, scale) ride along — the paper's "params" wire term (Eqn 5).
+        zr = _wire_a2a(zero.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
+        sr = _wire_a2a(scale.reshape(p, rows // ROW_GROUP, 1), topo, role="params")
+    with span("gnn.exchange.dequantize"):
+        out = dequant_unpack(qr.reshape(p * rows, -1), zr.reshape(-1),
+                             sr.reshape(-1), bits, feat).reshape(p, rows, feat)
+    _note("dequant_unpack", out)
     return out
 
 
@@ -443,7 +464,8 @@ def quantized_exchange(send: torch.Tensor, topo: StageTopo, bits: int,
                        ) -> torch.Tensor:
     """The quantized wire segment of one stage; ``noise(backward, shape)``
     gives the forward and backward stochastic-rounding uniforms."""
-    return _QuantizedExchange.apply(send, topo, bits, noise)
+    with span("gnn.exchange.quantized"):
+        return backward_of(_QuantizedExchange.apply(send, topo, bits, noise))
 
 
 def _check_quant_alignment(topo: StageTopo, rows: int) -> None:
@@ -464,14 +486,17 @@ def stage_exchange(send: torch.Tensor, topo: StageTopo, bits: int,
     """One stage's full exchange of assembled send buffers: pre-wire +
     (quantized) all_to_all + dequantize, then the post-wire fan-out
     (all_gather for ``grouped``, identity for ``a2a``)."""
-    if bits == 0:
-        wire = _WireA2A.apply(_pre_wire(send, topo), topo)
-    else:
-        if noise is None:
-            raise ValueError("quantized exchange needs stochastic-rounding noise")
-        _check_quant_alignment(topo, send.shape[1])
-        wire = quantized_exchange(send, topo, bits, noise)
-    return _post_wire(wire, topo)
+    with span("gnn.exchange.wire"):
+        if bits == 0:
+            wire = _pre_wire(send, topo)
+            with span("gnn.exchange.a2a"):
+                wire = backward_of(_WireA2A.apply(wire, topo))
+        else:
+            if noise is None:
+                raise ValueError("quantized exchange needs stochastic-rounding noise")
+            _check_quant_alignment(topo, send.shape[1])
+            wire = quantized_exchange(send, topo, bits, noise)
+        return _post_wire(wire, topo)
 
 
 # --------------------------------------------------------------------------
@@ -816,8 +841,8 @@ class CollectiveWire:
         if RECORDER is not None:
             import torch.distributed as dist
 
-            RECORDER.note(kind, out, chunks=chunks, role=role,
-                          group=tuple(dist.get_process_group_ranks(group)))
+            _note(kind, out, chunks=chunks, role=role,
+                  group=tuple(dist.get_process_group_ranks(group)))
 
     def _a2a(self, inp: torch.Tensor, group):
         import torch.distributed as dist
@@ -848,8 +873,7 @@ class CollectiveWire:
             return (pending,)
         packed, zero, scale = quant_pack(x.contiguous(), self._uniform(backward).to(x.device),
                                          self.bits)
-        if RECORDER is not None:
-            RECORDER.note("quant_pack", packed)
+        _note("quant_pack", packed)
         out = []
         for buf, role in ((packed, "payload"), (torch.stack([zero, scale], 1), "params")):
             out.append(self._a2a(buf, self.wire_group))
@@ -863,8 +887,7 @@ class CollectiveWire:
         words, zs = (self._wait(p) for p in pending)
         out = dequant_unpack(words, zs[:, 0].contiguous(), zs[:, 1].contiguous(),
                              self.bits, self.feat)
-        if RECORDER is not None:
-            RECORDER.note("dequant_unpack", out)
+        _note("dequant_unpack", out)
         return out
 
     def _psc_post(self, x: torch.Tensor):
@@ -987,7 +1010,8 @@ class LayerProgram:
         stage_noise = None
         if noise is not None:
             stage_noise = lambda backward, shape: noise(si, backward, shape)
-        return wire.post(assemble_send(h, plan, self.agg_backend), stage_noise)
+        with span("gnn.exchange.send", level=spec.level):
+            return wire.post(assemble_send(h, plan, self.agg_backend), stage_noise)
 
     def issue(self, h: torch.Tensor, noise: Optional[Noise],
               cache_entry: Optional[Sequence[torch.Tensor]] = None,
@@ -1025,5 +1049,6 @@ class LayerProgram:
                 new_entry.append(r.detach())
             if RECORDER is not None:
                 RECORDER.level = spec.level
-            acc = scatter_recv(acc, r, plan, agg_backend=self.agg_backend)
+            with span("gnn.exchange.scatter", level=spec.level, role="recv"):
+                acc = scatter_recv(acc, r, plan, agg_backend=self.agg_backend)
         return acc, tuple(new_entry)

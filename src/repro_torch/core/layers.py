@@ -28,6 +28,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.record import indexed
 from repro_torch.kernels.seg_aggregate import (DeviceBucketedEll, DeviceEllBucket,
                                                bucketed_aggregate)
 
@@ -101,8 +102,10 @@ def _attention(e_dst_rows: torch.Tensor, e_src: torch.Tensor, idx: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     """alpha [R, K, H]: softmax over each row's valid slots of
     leaky_relu(e_dst[r] + e_src[idx[r, k]]). Invalid slots get -1e9 before
-    the softmax (so a degree-0 row stays finite) and 0 after."""
-    e = torch.nn.functional.leaky_relu(e_dst_rows[:, None, :] + e_src[idx], 0.2)
+    the softmax (so a degree-0 row stays finite) and 0 after. The gather
+    ``e_src[idx]`` is the span ``gnn.gat.gather`` (``which`` ``e_src``)."""
+    e = torch.nn.functional.leaky_relu(
+        e_dst_rows[:, None, :] + indexed(e_src, idx, "gnn.gat.gather", which="e_src"), 0.2)
     e = torch.where(valid[..., None], e, -1e9)
     alpha = torch.softmax(e, dim=1)
     return torch.where(valid[..., None], alpha, 0.0)
@@ -143,7 +146,10 @@ def gat_aggregate_bucketed(
     normalized edge weights are strictly positive). Each destination row
     is in one bucket, so adding each bucket's rows onto zeros is one add
     per row. Only a bucket's real rows (``n``) are computed: the JAX
-    package's padding rows add exact zeros.
+    package's padding rows add exact zeros. In training, the three
+    gathers of each bucket are the span ``gnn.gat.gather`` (``which``:
+    ``e_dst``, ``e_src``, ``whh``), forward and backward, while torch's
+    profiler records.
     """
     whh, e_src, e_dst = _attention_inputs(p, h, heads)
     dh = whh.shape[-1]
@@ -153,8 +159,10 @@ def gat_aggregate_bucketed(
             if not b.n:
                 continue
             rows, idx = b.rows[:b.n].long(), b.idx[:b.n].long()
-            alpha = _attention(e_dst[rows], e_src, idx, b.w[:b.n] > 0)
-            agg = torch.einsum("rkh,rkhd->rhd", alpha, whh[idx])
+            alpha = _attention(indexed(e_dst, rows, "gnn.gat.gather", which="e_dst"),
+                               e_src, idx, b.w[:b.n] > 0)
+            agg = torch.einsum("rkh,rkhd->rhd", alpha,
+                               indexed(whh, idx, "gnn.gat.gather", which="whh"))
             out = out.index_add(0, rows, agg.reshape(b.n, heads * dh))
         return out + p["b"]
     # Heads as the stacked axis of one seg_aggregate launch.

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import layers as L
+from repro_torch.core.record import indexed
 
 
 @dataclass(frozen=True)
@@ -95,7 +96,9 @@ def forward(
     scales the kept values by ``1 / (1 - cfg.dropout)``."""
     h = x
     if cfg.label_prop:
-        emb = params["lp_embed"][labels.clamp(0, cfg.num_classes - 1).long()]
+        # The span gnn.lp_embed (and its backward) while the profiler records.
+        emb = indexed(params["lp_embed"], labels.clamp(0, cfg.num_classes - 1).long(),
+                      "gnn.lp_embed")
         h = h + torch.where(prop_mask[..., None], emb, 0.0)
     for l, p in enumerate(params["layers"]):
         if cfg.norm == "layer":

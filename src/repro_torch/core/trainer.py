@@ -61,7 +61,7 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.layers import gat_aggregate, gat_aggregate_bucketed
 from repro_torch.core.randomness import GeneratorRandomness
-from repro_torch.core.record import LoweredStep
+from repro_torch.core.record import LoweredStep, backward_of, span, trace_step
 from repro_torch.graph.remote import (
     HierPartitionedGraph,
     build_halo_plan,
@@ -180,15 +180,17 @@ def make_single_agg_fn(cfg: M.GCNConfig, data: SingleGraphData, params_getter,
     the JAX package's ``use_kernel`` path.
     """
     def agg_fn(l: int, h: torch.Tensor) -> torch.Tensor:
-        if cfg.model == "gat":
-            p = params_getter()["layers"][l]
-            if data.ell is not None:
-                return gat_aggregate_bucketed(p, h, data.ell, h.shape[0],
-                                              cfg.gat_heads)
-            return gat_aggregate(p, h, data.ell_idx, data.ell_valid, cfg.gat_heads)
-        if data.ell is not None and not use_kernel:
-            return bucketed_aggregate(h, data.ell, ell_t=data.ell_t)
-        return aggregate(h, data.ell_idx, data.ell_w)
+        with span("gnn.layer", layer=l):
+            if cfg.model == "gat":
+                p = params_getter()["layers"][l]
+                if data.ell is not None:
+                    return gat_aggregate_bucketed(p, h, data.ell, h.shape[0],
+                                                  cfg.gat_heads)
+                return gat_aggregate(p, h, data.ell_idx, data.ell_valid, cfg.gat_heads)
+            with span("gnn.aggregate.local", role="local"):
+                if data.ell is not None and not use_kernel:
+                    return backward_of(bucketed_aggregate(h, data.ell, ell_t=data.ell_t))
+                return aggregate(h, data.ell_idx, data.ell_w)
     return agg_fn
 
 
@@ -208,23 +210,30 @@ def single_train_step(params, opt_state, cfg: M.GCNConfig, data: SingleGraphData
     ``randomness`` draws epoch ``epoch``'s label-propagation selection
     (shape ``[N]``) and dropout masks (``[N, F]`` per layer) by name
     (``core.randomness``); the JAX package derives them from
-    ``PRNGKey(seed * 100003 + epoch)``."""
+    ``PRNGKey(seed * 100003 + epoch)``. While torch's profiler records,
+    the step is traced (``core.record``: ``gnn.step`` and its children)."""
     dev = data.x.device
-    if cfg.label_prop:
-        sel = randomness.lp_select(epoch, tuple(data.train_mask.shape), cfg.lp_rate, dev)
-        prop_mask, loss_mask = M.lp_masks(sel, data.train_mask)
-    else:
-        prop_mask, loss_mask = torch.zeros_like(data.train_mask), data.train_mask
-    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    keep = lambda l, shape: randomness.dropout_keep(epoch, l, shape,
-                                                    1.0 - cfg.dropout, dev)
-    logits = M.forward(p, cfg, data.x, data.labels, prop_mask,
-                       make_single_agg_fn(cfg, data, lambda: p), dropout_keep=keep)
-    ls, correct, cnt = M.loss_and_metrics(logits, data.labels, loss_mask)
-    cnt = torch.clamp(cnt, min=1.0)
-    loss = ls / cnt
-    params, opt_state = adamw_update(_grads(loss, p), opt_state, params, lr)
-    return params, opt_state, {"loss": loss.detach(), "train_acc": correct / cnt}
+    with trace_step(epoch, dev):
+        if cfg.label_prop:
+            sel = randomness.lp_select(epoch, tuple(data.train_mask.shape), cfg.lp_rate, dev)
+            prop_mask, loss_mask = M.lp_masks(sel, data.train_mask)
+        else:
+            prop_mask, loss_mask = torch.zeros_like(data.train_mask), data.train_mask
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        keep = lambda l, shape: randomness.dropout_keep(epoch, l, shape,
+                                                        1.0 - cfg.dropout, dev)
+        with span("gnn.forward"):
+            logits = M.forward(p, cfg, data.x, data.labels, prop_mask,
+                               make_single_agg_fn(cfg, data, lambda: p), dropout_keep=keep)
+        with span("gnn.loss"):
+            ls, correct, cnt = M.loss_and_metrics(logits, data.labels, loss_mask)
+            cnt = torch.clamp(cnt, min=1.0)
+            loss = ls / cnt
+        with span("gnn.backward", direction="backward"):
+            grads = _grads(loss, p)
+        with span("gnn.adamw"):
+            params, opt_state = adamw_update(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss.detach(), "train_acc": correct / cnt}
 
 
 def single_eval(params, cfg: M.GCNConfig, data: SingleGraphData) -> float:
@@ -475,13 +484,14 @@ def _local_aggregate(h: torch.Tensor, wd: WorkerData,
     is the same kernel over the reverse-graph layout. ``"coo"`` is the
     edge-order scatter-add kept for parity checks.
     """
-    if agg_backend == "ell" and wd.ell is not None:
-        kind, out = "seg_aggregate", bucketed_aggregate(h, wd.ell, ell_t=wd.ell_t)
-    else:
-        kind, out = "index_add", _index_add(torch.zeros_like(h), wd.coo_dst,
-                                            wd.coo_w[..., None] * _take(h, wd.coo_src))
-    if X.RECORDER is not None:
-        X.RECORDER.note(kind, out, role="local", level="")
+    with span("gnn.aggregate.local", role="local"):
+        if agg_backend == "ell" and wd.ell is not None:
+            kind, out = "seg_aggregate", backward_of(
+                bucketed_aggregate(h, wd.ell, ell_t=wd.ell_t))
+        else:
+            kind, out = "index_add", _index_add(torch.zeros_like(h), wd.coo_dst,
+                                                wd.coo_w[..., None] * _take(h, wd.coo_src))
+    X._note(kind, out, role="local", level="")
     return out
 
 
@@ -513,9 +523,12 @@ def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
             noise = lambda si, backward, shape: randomness.quant_uniform(
                 epoch, l, si, backward, shape, dev)
         entry = halo_cache[l] if halo_cache is not None else None
-        inflight = prog.issue(h, noise, cache_entry=entry, epoch=epoch)
-        local = _local_aggregate(h, wd, dc.agg_backend)
-        agg, ne = prog.finalize(local, inflight)
+        with span("gnn.layer", layer=l):
+            with span("gnn.exchange.issue"):
+                inflight = prog.issue(h, noise, cache_entry=entry, epoch=epoch)
+            local = _local_aggregate(h, wd, dc.agg_backend)
+            with span("gnn.exchange.finalize"):
+                agg, ne = prog.finalize(local, inflight)
         new_cache.append(ne)
         return agg
 
@@ -600,33 +613,40 @@ class DistributedTrainer:
         else:
             prop_mask, loss_mask = torch.zeros_like(wd.train_mask), wd.train_mask
         params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
-        logits, cache = _dist_forward(
-            params, cfg, self.dc, wd, prop_mask, self.randomness, e, train=True,
-            halo_cache=self._cache, schedule=self.schedule)
-        ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
-        gcnt = cnt.sum()
-        loss = ls.sum() / torch.clamp(gcnt, min=1.0)
-        grads = _grads(self.dc.nparts * loss, params)
+        with span("gnn.forward"):
+            logits, cache = _dist_forward(
+                params, cfg, self.dc, wd, prop_mask, self.randomness, e, train=True,
+                halo_cache=self._cache, schedule=self.schedule)
+        with span("gnn.loss"):
+            ls, correct, cnt = M.loss_and_metrics(logits, wd.labels, loss_mask)
+            gcnt = cnt.sum()
+            loss = ls.sum() / torch.clamp(gcnt, min=1.0)
+        with span("gnn.backward", direction="backward"):
+            grads = _grads(self.dc.nparts * loss, params)
         metrics = {"loss": loss.detach(),
                    "train_acc": correct.sum() / torch.clamp(gcnt, min=1.0)}
         return grads, metrics, (cache if self.use_cache else None)
 
     def train_epoch(self) -> Dict[str, float]:
-        rec = X.RECORDER
-        mark = len(rec.ops) if rec is not None else 0
-        grads, metrics, cache = self.train_step()
-        if rec is not None:
-            self.step_signatures.add(rec.signature(mark))
-        if self.use_cache:
-            self._cache = cache
-        self.params, self.opt_state = adamw_update(
-            grads, self.opt_state, self.params, self.dc.lr)
-        self.epoch += 1
-        # float() copies each metric to the host, which waits for every op
-        # queued before it, AdamW's included: a host clock around
-        # train_epoch (run/tune.py's probe) stops after the card has
-        # finished the epoch. Keep this sync.
-        return {k: float(v) for k, v in metrics.items()}
+        """One step and its AdamW update; traced while torch's profiler
+        records (``core.record``: ``gnn.step`` and its children)."""
+        with trace_step(self.epoch, self.device):
+            rec = X.RECORDER
+            mark = len(rec.ops) if rec is not None else 0
+            grads, metrics, cache = self.train_step()
+            if rec is not None:
+                self.step_signatures.add(rec.signature(mark))
+            if self.use_cache:
+                self._cache = cache
+            with span("gnn.adamw"):
+                self.params, self.opt_state = adamw_update(
+                    grads, self.opt_state, self.params, self.dc.lr)
+            self.epoch += 1
+            # float() copies each metric to the host, which waits for every
+            # op queued before it, AdamW's included: a host clock around
+            # train_epoch (run/tune.py's probe) stops after the card has
+            # finished the epoch. Keep this sync.
+            return {k: float(v) for k, v in metrics.items()}
 
     def evaluate(self) -> float:
         """Eval accuracy: every train label propagated, fresh fp32 halo."""

@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 import repro_torch.run.sources as sources  # populates the registries on import
+from repro_torch.core.record import setup_span
 from repro_torch.run.spec import FEATURE_SOURCES, GRAPH_SOURCES, RunSpec
 
 
@@ -78,11 +79,16 @@ def build_graph(spec: RunSpec) -> Tuple[Any, np.ndarray]:
     return g, x
 
 
+@setup_span("setup.partition")
 def build_partition(spec: RunSpec, g) -> Any:
     """Partition the (already normalized) graph per the spec: a flat
     ``PartitionedGraph`` or a two-level ``HierPartitionedGraph``, with the
     ``partition.refine`` post-pass applied to the labels before the halo
-    plans are built. Equal to ``repro.run.session.build_partition``."""
+    plans are built. Equal to ``repro.run.session.build_partition``: the
+    partition call ``build_*_partitioned_graph`` would make is made here
+    (the partitioner reads no edge weight). The set-up span
+    ``setup.partition`` (``core.record``) times it, and ``.labels`` the
+    labels alone."""
     from repro_torch.graph import (build_hierarchical_partitioned_graph,
                                    build_partitioned_graph)
     from repro_torch.graph.partition import (partition_graph,
@@ -91,17 +97,17 @@ def build_partition(spec: RunSpec, g) -> Any:
     ps = spec.partition
     if ps.hierarchical:
         gsz = ps.resolved_group_size()
-        part = None
-        if ps.refine == "bucket-max":
+        with setup_span("setup.partition.labels"):
             part = partition_hierarchical(g, ps.groups, gsz, seed=ps.seed)
-            part = refine_bucket_max(g, part, nparts=ps.nparts,
-                                     group_size=gsz, seed=ps.seed)
+            if ps.refine == "bucket-max":
+                part = refine_bucket_max(g, part, nparts=ps.nparts,
+                                         group_size=gsz, seed=ps.seed)
         return build_hierarchical_partitioned_graph(
             g, ps.groups, gsz, part=part, strategy=ps.strategy, seed=ps.seed)
-    part = None
-    if ps.refine == "bucket-max":
+    with setup_span("setup.partition.labels"):
         part = partition_graph(g, ps.nparts, seed=ps.seed)
-        part = refine_bucket_max(g, part, nparts=ps.nparts, seed=ps.seed)
+        if ps.refine == "bucket-max":
+            part = refine_bucket_max(g, part, nparts=ps.nparts, seed=ps.seed)
     return build_partitioned_graph(g, ps.nparts, part=part,
                                    strategy=ps.strategy, seed=ps.seed)
 

@@ -12,6 +12,7 @@ of the bar itself.
 """
 
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -762,3 +763,53 @@ def test_quantized_collectives_on_card_equal_the_plain_path(cuda, p, bits):
     assert torch.equal(card[1].cpu(), host[1])
     for k in tree:
         assert torch.equal(card[2][k].cpu(), host[2][k])
+
+
+# -- the spans (core.record) on the card ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_spans_leave_the_device_list_and_hold_the_index_backward(cuda, monkeypatch):
+    """A period (a refresh and a stale epoch) of a hierarchical Int2 session
+    under ``torch.profiler`` with CUDA activity lists the same device
+    activities, by name and count, with the spans live as with their gate
+    forced off; the send gather's and the label lookup's spans hold at
+    least 90% of the device time of ``indexing_backward_kernel*``, and no
+    more than the period's wall time."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.core import record
+    from repro_torch.run import RunSpec, build_session
+
+    session = build_session(RunSpec.from_dict(TRAIN_FLAGSHIP).with_overrides(
+        ["graph.nodes=4096", "graph.feat_dim=100", "graph.classes=47",
+         "model.hidden_dim=256", "model.num_layers=3"]), device=cuda)
+    for _ in range(2):
+        session.train_epoch()
+
+    def period():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                session.train_epoch()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return Counter(e.name for e in dev), dev, wall
+
+    record.SPANS.steps.clear()
+    live, dev, wall = period()
+    steps = record.traced_steps()
+    monkeypatch.setattr(record, "_profiler", SimpleNamespace(_is_profiler_enabled=False))
+    gated, _, _ = period()
+    assert [r.epoch for r in steps] == [2, 3] and len(record.SPANS.steps) == 2
+    assert live == gated
+    index_ms = sum(e.time_range.elapsed_us() for e in dev
+                   if "indexing_backward_kernel" in e.name) * 1e-3
+    spans_ms = sum(r.device_ms("gnn.exchange.send_gather") + r.device_ms("gnn.lp_embed")
+                   for r in steps)
+    assert index_ms > 0 and 0.9 * index_ms <= spans_ms <= wall * 1e3
