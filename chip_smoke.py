@@ -58,9 +58,9 @@ the result line is printed:
              graph, 8 workers stacked, hierarchical 2x4, Int2 inter wire,
              inter_cd=2). The stacked seg_aggregate and its backward are held
              to their plain versions on the session's own layouts (rtol =
-             atol = 1e-5). On all ten stacked layouts (local graph, intra and
-             inter send-side pre-aggregations and receive scatters, and the
-             reverse of each), at F in (100,
+             atol = 1e-5). On all fourteen stacked layouts (local graph,
+             intra and inter send gathers, send-side pre-aggregations and
+             receive scatters, and the reverse of each), at F in (100,
              256, 47), two launches must give the same bits and agree with
              the plain version; each layout is timed at F = 256 beside the
              plain version, torch.sparse.mm and the bound, with one launch
@@ -804,8 +804,8 @@ def _block_diag_csr(lay, out_rows, in_rows, dev):
 
 def train_layouts(session) -> list:
     """The stacked layouts of the training path: (name, layout, source
-    rows, output rows, whether it is a backward layout). Ten for a
-    hierarchical schedule, six for a flat one."""
+    rows, output rows, whether it is a backward layout). Fourteen for a
+    hierarchical schedule, eight for a flat one."""
     wd = session.wd
     m = wd.x.shape[1]
     out = [("local", wd.ell, m, m, False), ("local_t", wd.ell_t, m, m, True)]
@@ -813,7 +813,9 @@ def train_layouts(session) -> list:
              (("intra", wd.hier_plan.intra), ("inter", wd.hier_plan.inter)))
     for name, plan in plans:
         wire = plan.send_gather_idx.shape[1]
-        out += [(f"{name} pre", plan.pre_ell, m, wire, False),
+        out += [(f"{name} send", plan.send_ell, m, wire, False),
+                (f"{name} send_t", plan.send_ell_t, wire, m, True),
+                (f"{name} pre", plan.pre_ell, m, wire, False),
                 (f"{name} pre_t", plan.pre_ell_t, wire, m, True),
                 (f"{name} receive", plan.recv_ell, wire, m, False),
                 (f"{name} receive_t", plan.recv_ell_t, m, wire, True)]
@@ -1879,8 +1881,8 @@ def check_session_kernels(session, dev, label: str, fs=(100, 256, 47)) -> dict:
     at the layouts and wire rows that session built (a tuned partition such
     as ``refine=bucket-max`` moves hub rows, so its buckets differ from
     phase 7's). seg_aggregate forward, and its backward through autograd
-    over the reverse layout, on the local graph and on every stage's
-    pre-aggregation and receive scatter; two launches bitwise on all of
+    over the reverse layout, on the local graph and on every stage's send
+    gather, pre-aggregation and receive scatter; two launches bitwise on all of
     them; quant_pack and dequant_unpack at each quantized stage's wire rows
     (after the psum_scatter of a grouped stage), bitwise. F in ``fs``,
     rtol = atol = TOL; fails on any mismatch."""

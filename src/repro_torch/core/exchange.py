@@ -57,6 +57,14 @@ and ``finalize``, each stage's ``send`` (``assemble`` with its
 the aggregation kernel and the two wire Functions are hooked
 (``core.record.backward_of``), so their backward opens the same span
 again, direction backward.
+
+On the ``ell`` backend the raw send gather is itself the aggregation
+kernel over a layout of the live wire slots (``send_ell``), so its
+backward reads only the slots that carry a row, in a fixed order; the
+index gather's backward would sort every slot, padding included, and sum
+each worker's padding on its row 0 serially. ``layout_gathers`` and
+``index_gathers`` count the send gathers each route ran, so a run can
+show which one its main path took.
 """
 
 from __future__ import annotations
@@ -87,6 +95,9 @@ Noise = Callable[[int, bool, Tuple[int, ...]], torch.Tensor]
 # recorded). Set only by :func:`recording`.
 RECORDER = None
 
+layout_gathers = 0   # send gathers over the plan's send layout since the last reset
+index_gathers = 0    # send gathers through the index since the last reset
+
 
 @contextlib.contextmanager
 def recording(rank: Optional[int] = None):
@@ -100,6 +111,12 @@ def recording(rank: Optional[int] = None):
         yield RECORDER
     finally:
         RECORDER = prev
+
+
+def gather_counts() -> dict:
+    """This process's send gathers so far, by route: over the plan's
+    send layout (``layout``) and through the index (``index``)."""
+    return {"layout": layout_gathers, "index": index_gathers}
 
 
 def _note(kind: str, out, **kw) -> None:
@@ -179,6 +196,16 @@ class DeviceHaloPlan(NamedTuple):
     # slots): the ``ell`` backend sums each slot's partials with the kernel.
     pre_ell: Optional[segagg.DeviceBucketedEll] = None
     pre_ell_t: Optional[segagg.DeviceBucketedEll] = None
+    # The same for the raw send gather (owned row -> its live wire slots,
+    # weight 1; padding slots have no entry): the ``ell`` backend gathers
+    # with the kernel, and its backward reads the live slots alone.
+    send_ell: Optional[segagg.DeviceBucketedEll] = None
+    send_ell_t: Optional[segagg.DeviceBucketedEll] = None
+
+    def live_share(self) -> float:
+        """The share of the wire slots that carry a row (the rest is
+        padding)."""
+        return float(self.send_gather_mask.float().mean())
 
 
 def _host_bucketed(src, dst, weight, num_dst: int, num_src: int):
@@ -204,6 +231,16 @@ def host_pre_bucketed(hp, num_rows: int):
                           hp.send_gather_idx.shape[-1], num_rows)
 
 
+def host_send_bucketed(hp, num_rows: int):
+    """:func:`_host_bucketed` of each worker's raw send gather (owned row
+    ``send_gather_idx`` -> its wire slot, weight 1 where
+    ``send_gather_mask``): the padding slots are dropped."""
+    idx = np.asarray(hp.send_gather_idx)
+    slots = np.broadcast_to(np.arange(idx.shape[-1]), idx.shape)
+    return _host_bucketed(idx, slots, np.asarray(hp.send_gather_mask, np.float32),
+                          idx.shape[-1], num_rows)
+
+
 def host_recv_bucketed(hp, num_rows: int):
     """Bucketed-ELL (fwd + reverse) of each worker's recv scatter, as host
     *stacked* bucket tuples ([P, ...] numpy, ``stack_bucketed_ells``
@@ -218,13 +255,14 @@ def stack_halo_plan(hp, num_rows: Optional[int] = None,
     """graph.remote.HaloPlan (host numpy, [P, ...]) -> stacked device plan.
 
     ``num_rows`` (each worker's padded owned-row count) additionally builds
-    the bucketed pre-aggregation and recv-scatter layouts consumed by the
-    ``ell`` aggregation backend; without it the plan only supports the COO
-    paths.
+    the bucketed send-gather, pre-aggregation and recv-scatter layouts
+    consumed by the ``ell`` aggregation backend; without it the plan only
+    supports the COO paths.
     """
     layouts = {}
     if num_rows is not None:
-        for name, host in (("pre", host_pre_bucketed), ("recv", host_recv_bucketed)):
+        for name, host in (("send", host_send_bucketed), ("pre", host_pre_bucketed),
+                           ("recv", host_recv_bucketed)):
             fwd, rev = host(hp, num_rows)
             layouts[f"{name}_ell"] = segagg.device_bucketed(fwd, device=device,
                                                            squeeze=False)
@@ -263,19 +301,36 @@ def stack_hier_plan(hp, num_rows: Optional[int] = None,
     )
 
 
+def _send_gather(h: torch.Tensor, plan: DeviceHaloPlan, agg_backend: str
+                 ) -> torch.Tensor:
+    """The raw rows of the [P, C*R, F] wire buffers, 0 in padding slots:
+    the aggregation kernel over ``send_ell`` (its backward over
+    ``send_ell_t``) on the ``ell`` backend with a plan that carries them,
+    else the index gather."""
+    global layout_gathers, index_gathers
+    if agg_backend == "ell" and plan.send_ell is not None:
+        layout_gathers += 1
+        with span("gnn.exchange.send_gather"):
+            return backward_of(segagg.bucketed_aggregate(
+                h, plan.send_ell, plan.send_gather_idx.shape[-1], ell_t=plan.send_ell_t))
+    index_gathers += 1
+    return torch.where(plan.send_gather_mask[..., None],
+                       _take(h, plan.send_gather_idx, "gnn.exchange.send_gather"), 0.0)
+
+
 def assemble_send(h: torch.Tensor, plan: DeviceHaloPlan,
                   agg_backend: str = "coo") -> torch.Tensor:
     """Build the [P, C*R, F] wire buffers: post raws + pre partials (Fig 2
     step 4).
 
     ``agg_backend="ell"`` (with a plan that carries the bucketed layouts)
-    sums each slot's partials with the aggregation kernel, forward and
-    backward, in a fixed order; ``"coo"`` adds them in edge order
-    (:func:`_index_add`).
+    gathers the raw rows and sums each slot's partials with the
+    aggregation kernel, forward and backward, in a fixed order; padding
+    slots keep the kernel's zeros. ``"coo"`` gathers through the index
+    and adds the partials in edge order (:func:`_index_add`).
     """
     with span("gnn.exchange.assemble", role="send"):
-        raw = torch.where(plan.send_gather_mask[..., None],
-                          _take(h, plan.send_gather_idx, "gnn.exchange.send_gather"), 0.0)
+        raw = _send_gather(h, plan, agg_backend)
         with span("gnn.exchange.pre_aggregate"):
             if agg_backend == "ell" and plan.pre_ell is not None:
                 kind = "seg_aggregate"

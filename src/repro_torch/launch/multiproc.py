@@ -106,6 +106,7 @@ from repro_torch.core.exchange import (
     StageTopo,
     host_pre_bucketed,
     host_recv_bucketed,
+    host_send_bucketed,
 )
 from repro_torch.core.randomness import GeneratorRandomness
 from repro_torch.core.trainer import WorkerData, _grads, _local_aggregate, resolve_device
@@ -556,7 +557,8 @@ _PLAN_FIELDS = ("send_gather_idx", "send_gather_mask", "pre_src", "pre_slot",
 _PLAN_DTYPES = {"send_gather_mask": torch.bool, "pre_weight": torch.float32,
                 "recv_weight": torch.float32}
 # (arena key, DeviceHaloPlan field) of each plan's bucketed layouts
-_PLAN_LAYOUTS = (("pell", "pre_ell"), ("pellt", "pre_ell_t"),
+_PLAN_LAYOUTS = (("sell", "send_ell"), ("sellt", "send_ell_t"),
+                 ("pell", "pre_ell"), ("pellt", "pre_ell_t"),
                  ("rell", "recv_ell"), ("rellt", "recv_ell_t"))
 
 
@@ -828,7 +830,7 @@ class _RankBase:
     def train_epoch(self) -> dict:
         self._before_epoch()
         t0 = time.perf_counter()
-        launched0 = launch_counts()
+        launched0, gathers0 = launch_counts(), X.gather_counts()
         c0 = self._counters()
         gsum, cache = self._grad_step()
         host = gsum.cpu().numpy()
@@ -849,7 +851,9 @@ class _RankBase:
                 "epoch_s": time.perf_counter() - t0,
                 **{k: c1[k] - c0[k] for k in ("wait_s", "wire_s", "wire_bytes")},
                 "grad_norm": grad_norm,
-                "launches": {k: now[k] - launched0[k] for k in now}}
+                "launches": {k: now[k] - launched0[k] for k in now},
+                "send_gathers": {k: v - gathers0[k]
+                                 for k, v in X.gather_counts().items()}}
 
     def evaluate(self) -> dict:
         launched0 = launch_counts()
@@ -1093,7 +1097,8 @@ def _add_plan(arrays: Dict[str, np.ndarray], prefix: str, hp,
               max_owned: int) -> dict:
     for f in _PLAN_FIELDS:
         arrays[f"plan.{prefix}.{f}"] = getattr(hp, f)
-    layouts = dict(zip(("pell", "pellt"), host_pre_bucketed(hp, max_owned)))
+    layouts = dict(zip(("sell", "sellt"), host_send_bucketed(hp, max_owned)))
+    layouts.update(zip(("pell", "pellt"), host_pre_bucketed(hp, max_owned)))
     layouts.update(zip(("rell", "rellt"), host_recv_bucketed(hp, max_owned)))
     return {f"{key}_ks": _add_ell(arrays, f"plan.{prefix}.{key}", stacked)
             for key, stacked in layouts.items()}
@@ -1602,7 +1607,8 @@ class MultiprocRuntime(_Fleet):
             "wire_s": [r["wire_s"] for r in reps],
             "wire_bytes": [r["wire_bytes"] for r in reps],
             "grad_norm": float(reps[0]["grad_norm"]),
-            "launches": [r["launches"] for r in reps]})
+            "launches": [r["launches"] for r in reps],
+            "send_gathers": [r["send_gathers"] for r in reps]})
         return {"loss": float(reps[0]["loss"]),
                 "train_acc": float(reps[0]["train_acc"]),
                 "epoch_s": float(self.epoch_stats[-1]["epoch_s"])}

@@ -371,7 +371,7 @@ class ShardMapRuntime(_Fleet):
             "epoch_s": max(r["epoch_s"] for r in reps),
             "rank_epoch_s": [r["epoch_s"] for r in reps],
             **{k: [r[k] for r in reps] for k in ("wait_s", "wire_s", "wire_bytes",
-                                                   "launches")},
+                                                   "launches", "send_gathers")},
             "grad_norm": float(reps[0]["grad_norm"])})
         return {"loss": float(reps[0]["loss"]),
                 "train_acc": float(reps[0]["train_acc"]),

@@ -51,7 +51,7 @@ def setup(request):
     _, tflat, thier, m2 = _setup(tg, request.param)
     assert m == m2
     return SimpleNamespace(
-        m=m,
+        source=request.param, m=m,
         jflat=jx.stack_halo_plan(jflat, num_rows=m),
         jhier=jx.stack_hier_plan(jhier, num_rows=m),
         tflat=tx.stack_halo_plan(tflat, num_rows=m, device="cpu"),
@@ -142,6 +142,68 @@ def test_assemble_send_and_scatter_recv(setup, level, backend):
     np.testing.assert_allclose(
         tx.scatter_recv(torch.from_numpy(h), torch.from_numpy(recv), tp, backend).numpy(),
         np.asarray(jacc), **TOL)
+
+
+def _padded_plan(source, m):
+    """The flat plan of ``source`` at 12 times the rows a pair needs: at
+    least 90% of its wire slots are padding."""
+    gn = _setup(tg, source)[0]
+    part = tg.partition_hierarchical(gn, G, W, seed=0)
+    pgf = tg.build_partitioned_graph(gn, P, part=part, seed=0)
+    rows = 12 * max(4, (pgf.stats.padded_rows_per_pair + 3) // 4 * 4)
+    return tx.stack_halo_plan(tg.remote.build_halo_plan(pgf, rows_per_pair=rows),
+                              num_rows=m, device="cpu")
+
+
+def _entries(ell):
+    """Per worker, the (row, source) pairs of a stacked layout's real
+    entries (weight != 0)."""
+    out = [set() for _ in range(ell.buckets[0].rows.shape[0])]
+    for b in ell.buckets:
+        for p, r, k in zip(*np.nonzero(b.w.numpy())):
+            out[p].add((int(b.rows[p, r]), int(b.idx[p, r, k])))
+    return out
+
+
+@pytest.mark.parametrize("level", ["flat", "intra", "inter", "padded"])
+def test_send_gather_over_the_layout(setup, level):
+    """The ``ell`` send gather over ``send_ell`` against the index gather
+    (the same plan without the layouts): the forward bit for bit with
+    padding slots exactly 0, the gradient in ``h`` within 1e-6; the
+    layouts hold one weight-1 entry per live slot and none for padding;
+    the counters tell the two routes apart."""
+    plan = {"flat": setup.tflat, "intra": setup.thier.intra, "inter": setup.thier.inter,
+            "padded": None}[level]
+    if plan is None:
+        plan = _padded_plan(setup.source, setup.m)
+        assert plan.live_share() <= 0.1
+    mask, idx = plan.send_gather_mask.numpy(), plan.send_gather_idx.numpy()
+    live = [{(int(s), int(idx[p, s])) for s in np.flatnonzero(mask[p])} for p in range(P)]
+    assert _entries(plan.send_ell) == live
+    assert _entries(plan.send_ell_t) == [{(r, s) for s, r in lv} for lv in live]
+    for ell in (plan.send_ell, plan.send_ell_t):
+        assert sum(int((b.w != 0).sum()) for b in ell.buckets) == int(mask.sum())
+        assert all(set(np.unique(b.w.numpy())) <= {0.0, 1.0} for b in ell.buckets)
+
+    rng = np.random.default_rng(len(level))
+    h = torch.from_numpy(rng.normal(size=(P, setup.m, F)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(P, mask.shape[1], F)).astype(np.float32))
+    index_plan = plan._replace(send_ell=None, send_ell_t=None)
+    runs = {}
+    for name, pl in (("layout", plan), ("index", index_plan)):
+        x = h.clone().requires_grad_(True)
+        before = tx.gather_counts()
+        raw = tx._send_gather(x, pl, "ell")
+        after = tx.gather_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == name) for k in after}
+        runs[name] = (raw.detach(), torch.autograd.grad(raw, x, g)[0])
+    (raw, dh), (want, want_dh) = runs["layout"], runs["index"]
+    assert torch.equal(raw.view(torch.int32), want.view(torch.int32))
+    assert not raw.view(torch.int32)[torch.from_numpy(~mask)].any()
+    torch.testing.assert_close(dh, want_dh, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(tx.assemble_send(h, plan, "ell").numpy(),
+                                  tx.assemble_send(h, index_plan, "ell").numpy())
 
 
 # -- whole layer programs --------------------------------------------------------

@@ -262,7 +262,7 @@ def test_kernel_repeats_bitwise_on_hub_layouts(cuda, f):
 @pytest.mark.gpu
 @pytest.mark.parametrize("f", [256, 100, 47])
 def test_kernel_on_the_training_layouts(cuda, f):
-    """The ten stacked layouts of the small flagship spec (the layouts
+    """The fourteen stacked layouts of the small flagship spec (the layouts
     tests/test_torch_kernels.py decodes the launch tables of), forward and
     backward, against the plain version."""
     from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
@@ -274,7 +274,8 @@ def test_kernel_on_the_training_layouts(cuda, f):
     for plan in (wd.hier_plan.intra, wd.hier_plan.inter):
         wire = plan.send_gather_idx.shape[1]
         lays += [(plan.recv_ell, wire, m), (plan.recv_ell_t, m, wire),
-                 (plan.pre_ell, m, wire), (plan.pre_ell_t, wire, m)]
+                 (plan.pre_ell, m, wire), (plan.pre_ell_t, wire, m),
+                 (plan.send_ell, m, wire), (plan.send_ell_t, wire, m)]
     for lay, n_in, n_out in lays:
         x = torch.randn((wd.x.shape[0], n_in, f), device=cuda)
         got = sa._bucketed_forward(x, lay, n_out)
@@ -398,6 +399,54 @@ def test_pre_aggregation_repeats_bitwise(cuda):
         for y, dx in runs[1:]:
             assert torch.equal(y, runs[0][0]) and torch.equal(dx, runs[0][1])
         torch.testing.assert_close(runs[0][0], assemble_send(h, plan, "coo"), **TOL)
+
+
+@pytest.mark.gpu
+def test_send_gather_over_the_layout_on_card(cuda, monkeypatch):
+    """The raw send gather over the plan's send layout on the card, both
+    stages at F=256: two forward and backward passes give the same bits
+    (C1), one launch each way a call; the forward is the index gather's
+    bit for bit and its gradient the index gather's within TOL. In a
+    stacked ``ell`` epoch every send gather goes over the layout, and each
+    adds one backward launch against the same epoch through the index."""
+    from repro_torch.configs.train_products_paper import FLAGSHIP as TRAIN_FLAGSHIP
+    from repro_torch.core import exchange as X
+    from repro_torch.run import RunSpec, build_session
+
+    session = build_session(RunSpec.from_dict(TRAIN_FLAGSHIP), device=cuda)
+    wd = session.wd
+    for plan in (wd.hier_plan.intra, wd.hier_plan.inter):
+        h = torch.randn((wd.x.shape[0], wd.x.shape[1], 256), device=cuda)
+        g = torch.randn((h.shape[0], plan.send_gather_idx.shape[1], 256), device=cuda)
+        runs = []
+        for pl in (plan, plan, plan._replace(send_ell=None, send_ell_t=None)):
+            x = h.clone().requires_grad_(True)
+            before = (sa.launches, sa.backward_launches)
+            y = X._send_gather(x, pl, "ell")
+            (dx,) = torch.autograd.grad(y, x, g)
+            runs.append((y.detach(), dx,
+                         (sa.launches - before[0], sa.backward_launches - before[1])))
+        (y, dx, launched), (y2, dx2, launched2), (yi, dxi, launched_i) = runs
+        assert torch.equal(y, y2) and torch.equal(dx, dx2)
+        assert launched == launched2 == (1, 1) and launched_i == (0, 0)
+        assert torch.equal(y.view(torch.int32), yi.view(torch.int32))
+        torch.testing.assert_close(dx, dxi, **TOL)
+
+    def epoch():
+        gathers, bwd = X.gather_counts(), sa.backward_launches
+        session.train_epoch()
+        return ({k: v - gathers[k] for k, v in X.gather_counts().items()},
+                sa.backward_launches - bwd)
+
+    layout, bwd = epoch()                     # epoch 0 refreshes both stages
+    assert layout["layout"] > 0 and layout["index"] == 0
+    epoch()
+    gather = X._send_gather
+    monkeypatch.setattr(X, "_send_gather", lambda h, plan, backend: gather(
+        h, plan._replace(send_ell=None, send_ell_t=None), backend))
+    index, bwd_index = epoch()                # epoch 2 refreshes both again
+    assert index == {"layout": 0, "index": layout["layout"]}
+    assert bwd - bwd_index == layout["layout"]
 
 
 # -- multiproc on the card, recovery, and the coo backend (C1) -------------------

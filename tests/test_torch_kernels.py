@@ -211,9 +211,10 @@ def _padded_graph():
 
 @pytest.fixture(scope="module")
 def train_layouts():
-    """The ten stacked layouts of the small flagship spec (the training
-    path's local graph, intra and inter send-side pre-aggregations and
-    receive scatters, and their reverses), a stack in which one worker has
+    """The fourteen stacked layouts of the small flagship spec (the
+    training path's local graph, intra and inter send gathers, send-side
+    pre-aggregations and receive scatters, and their reverses), a stack in
+    which one worker has
     no row in a bucket, and a padded one-graph layout as the server builds
     them."""
     from repro_torch.configs.train_products_paper import FLAGSHIP
@@ -227,13 +228,16 @@ def train_layouts():
         lays[name + "_t"] = (plan.recv_ell_t, m)
         lays[name + "_pre"] = (plan.pre_ell, m)
         lays[name + "_pre_t"] = (plan.pre_ell_t, plan.send_gather_idx.shape[1])
+        lays[name + "_send"] = (plan.send_ell, m)
+        lays[name + "_send_t"] = (plan.send_ell_t, plan.send_gather_idx.shape[1])
     lays["uneven"] = _uneven_stack()
     lays["padded"] = _padded_graph()
     return lays
 
 
 LAYOUTS = ["local", "local_t", "intra", "intra_t", "inter", "inter_t", "intra_pre",
-           "intra_pre_t", "inter_pre", "inter_pre_t", "uneven", "padded"]
+           "intra_pre_t", "inter_pre", "inter_pre_t", "intra_send", "intra_send_t",
+           "inter_send", "inter_send_t", "uneven", "padded"]
 
 
 @pytest.mark.parametrize("name", LAYOUTS)

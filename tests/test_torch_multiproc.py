@@ -171,6 +171,19 @@ class TestParity:
                                          "quant_pack", "dequant_unpack"}
                 assert all(v == 0 for v in launched.values())
 
+    @pytest.mark.parametrize("run,per_epoch", [("flat_run", [2, 2, 2]),
+                                               ("hier_run", [4, 2, 4, 2])])
+    def test_ranks_send_gathers_take_the_send_layout(self, run, per_epoch, request):
+        """Every rank's plan carries the send layouts (shipped beside the
+        pre-aggregation's and the receive scatter's), so on the ``ell``
+        backend each of its send gathers runs over the layout and none
+        through the index: one send per stage and layer, the inter stage
+        on refresh epochs only."""
+        stats = request.getfixturevalue(run)["stats"]["epoch_stats"]
+        got = [[r["layout"] for r in s["send_gathers"]] for s in stats]
+        assert got == [[n] * len(stats[0]["send_gathers"]) for n in per_epoch]
+        assert all(r["index"] == 0 for s in stats for r in s["send_gathers"])
+
     def test_rank_rss_shows_one_shared_store_copy(self, hier_run):
         smry = hier_run["stats"]["summary"]
         assert smry["device"] == "cpu" and len(smry["ranks"]) == 4

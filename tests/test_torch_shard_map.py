@@ -208,6 +208,14 @@ class TestAgainstMultiproc:
             refresh, stale = per_epoch[0], per_epoch[1]
             assert stale < refresh and per_epoch == [refresh, stale, refresh, stale]
 
+    def test_send_gathers_take_the_send_layout_as_multiproc(self, hier_run):
+        """The ranks build their plans as multiproc's do, send layouts
+        included: every send gather runs over the layout, as many as
+        multiproc's ranks run, so the two keep one backward."""
+        got = [s["send_gathers"] for s in hier_run["shard_map_stats"]]
+        assert got == [s["send_gathers"] for s in hier_run["multiproc_stats"]]
+        assert all(r["layout"] > 0 and r["index"] == 0 for s in got for r in s)
+
     def test_lowered_bytes_equal_a_real_ranks_wire_bytes(self, hier_run):
         """``Session.lower()`` records, per rank, what the rank's collectives
         deliver in a refresh epoch (``LoweredStep.wire_bytes``: every
