@@ -153,21 +153,11 @@ def _take(h: torch.Tensor, idx: torch.Tensor, name: Optional[str] = None
 
 def _index_add(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor
                ) -> torch.Tensor:
-    """``base[p].at[idx[p]].add(vals[p])`` for every worker (out of place).
-
-    The sum of each row is taken in a fixed order on every device, so a
-    run repeats bit for bit: ``index_add`` adds in index order on the CPU,
-    but with atomics on the card, where ``index_put`` with
-    ``accumulate=True`` sorts the indices (stably) and then adds each
-    row's values in that order."""
+    """``base[p].at[idx[p]].add(vals[p])`` for every worker (out of place),
+    each row's sum in a fixed order (``kernels.seg_aggregate.add_rows``)."""
     p, n, f = base.shape
-    flat, rows = base.reshape(p * n, f), segagg.flat_rows(idx, n).reshape(-1)
-    vals = vals.reshape(-1, f)
-    if base.device.type == "cpu":
-        out = flat.index_add(0, rows, vals)
-    else:
-        out = flat.index_put((rows,), vals, accumulate=True)
-    return out.reshape(p, n, f)
+    rows = segagg.flat_rows(idx, n).reshape(-1)
+    return segagg.add_rows(base.reshape(p * n, f), rows, vals.reshape(-1, f)).reshape(p, n, f)
 
 
 # --------------------------------------------------------------------------
@@ -350,8 +340,14 @@ def scatter_recv(acc: torch.Tensor, recv: torch.Tensor, plan: DeviceHaloPlan,
 
     ``agg_backend="ell"`` (with a plan that carries the bucketed layouts)
     routes the scatter through the aggregation kernel, forward and
-    backward; ``"coo"`` is the edge-order scatter-add.
+    backward; ``"coo"`` is the edge-order scatter-add. An accumulator that
+    is not a tensor (GAT's ``core.layers.GatPartial``) merges the received
+    rows itself, as in-edges of its own softmax, over the plan's COO.
     """
+    if not torch.is_tensor(acc):
+        out = acc.merge_halo(recv, plan)
+        _note("index_add", out.acc, role="recv")
+        return out
     if agg_backend == "ell" and plan.recv_ell is not None:
         kind = "seg_aggregate"
         out = acc + backward_of(segagg.bucketed_aggregate(

@@ -348,7 +348,7 @@ SETUPS_KEPT = 64
 # matches kernel names never counts a span.
 STEP_SPANS = (
     "gnn.step", "gnn.forward", "gnn.loss", "gnn.backward", "gnn.adamw",
-    "gnn.lp_embed", "gnn.layer", "gnn.aggregate.local", "gnn.gat.gather",
+    "gnn.lp_embed", "gnn.layer", "gnn.aggregate.local", "gnn.gat.gather", "gnn.gat.halo",
     "gnn.exchange.issue", "gnn.exchange.finalize", "gnn.exchange.send",
     "gnn.exchange.assemble", "gnn.exchange.send_gather",
     "gnn.exchange.pre_aggregate", "gnn.exchange.wire", "gnn.exchange.pre_wire",
@@ -596,9 +596,10 @@ def span(name: str, *, layer: Optional[int] = None, level: Optional[str] = None,
                      direction=direction)
 
 
-def _hook_backward(node, fwd: Span) -> None:
-    """Open ``fwd``'s backward span around the autograd node ``node``: a
-    pre-hook opens it, a post-hook closes it. Neither changes a gradient."""
+def _hook_backward(node, fwd: Span, last=None) -> None:
+    """Open ``fwd``'s backward span around the autograd node ``node`` (to
+    the end of ``last``'s, when given): a pre-hook opens it, a post-hook
+    closes it. Neither changes a gradient."""
     opened: list = []
 
     def pre(grad_outputs):
@@ -611,7 +612,15 @@ def _hook_backward(node, fwd: Span) -> None:
             opened.pop().__exit__(None, None, None)
 
     node.register_prehook(pre)
-    node.register_hook(post)
+    (node if last is None else last).register_hook(post)
+
+
+def _open_step_span() -> Optional[Span]:
+    """The innermost span this thread has open in the traced step."""
+    stack = SPANS.stack()
+    if stack and stack[-1][0] is SPANS.step:
+        return SPANS.step.spans[stack[-1][1]]
+    return None
 
 
 def backward_of(out: torch.Tensor) -> torch.Tensor:
@@ -621,9 +630,25 @@ def backward_of(out: torch.Tensor) -> torch.Tensor:
     the span's ``with``. Nothing traces: no hook."""
     if not _profiler._is_profiler_enabled or out.grad_fn is None:
         return out
-    stack = SPANS.stack()
-    if stack and stack[-1][0] is SPANS.step:
-        _hook_backward(out.grad_fn, SPANS.step.spans[stack[-1][1]])
+    fwd = _open_step_span()
+    if fwd is not None:
+        _hook_backward(out.grad_fn, fwd)
+    return out
+
+
+def backward_between(out: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """``out``, made inside the innermost open span from ``first`` (made
+    there first); while a step is traced, the backward from ``out``'s own
+    autograd node to the end of ``first``'s runs under that span, direction
+    backward. Autograd runs the ready node made last first, so the nodes
+    made between the two run before ``first``'s, and none made before them
+    runs amid them. Nothing traces: no hook."""
+    if (not _profiler._is_profiler_enabled or out.grad_fn is None
+            or first.grad_fn is None):
+        return out
+    fwd = _open_step_span()
+    if fwd is not None:
+        _hook_backward(out.grad_fn, fwd, last=first.grad_fn)
     return out
 
 

@@ -35,8 +35,17 @@ bit.
 worker, over host mailboxes or ``torch.distributed`` collectives) are
 ``repro_torch.launch.multiproc`` and ``repro_torch.launch.spmd``, which
 run this module's pieces at P = 1 in each rank. ``lower_step`` records
-one step for the auditor. Refused (it raises): distributed GAT, which
-the JAX package cannot train either (ROADMAP C-ref7).
+one step for the auditor.
+
+GAT trains distributed on the stacked workers when every halo row is a
+raw source (``partition.strategy=post``): each layer's local in-edges
+give its softmax partials while the wire is in flight, and ``finalize``
+merges each stage's received rows into them as halo in-edges
+(``core.layers.GatPartial``), so every node takes one softmax over all its
+in-edges. Refused (it raises, :data:`GAT_NOT_DISTRIBUTED`): a plan with
+pre-aggregated halo rows, and the one-process-per-worker modes
+(:func:`refuse_gat`). The JAX package cannot train GAT distributed at
+all (ROADMAP C-ref7).
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from repro_torch.core.exchange import (
     stack_halo_plan,
     stack_hier_plan,
 )
-from repro_torch.core.layers import gat_aggregate, gat_aggregate_bucketed
+from repro_torch.core.layers import gat_aggregate, gat_aggregate_bucketed, gat_local_partial
 from repro_torch.core.randomness import GeneratorRandomness
 from repro_torch.core.record import LoweredStep, backward_of, span, trace_step
 from repro_torch.graph.remote import (
@@ -87,10 +96,31 @@ from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves, tree_
 HIER_INTER_BITS_DEFAULT = 2
 
 GAT_NOT_DISTRIBUTED = (
-    "model 'gat' does not train distributed: the JAX package's distributed "
-    "GAT raises a broadcasting error (ROADMAP C-ref7: its layer takes the "
-    "halo aggregation for the attention output); train GAT on one device "
-    "with train_gcn_single, or serve it")
+    "model 'gat' trains distributed on raw halo rows only "
+    "(partition.strategy=post): a pre-aggregated halo row (strategy hybrid or "
+    "pre) is a sum of a destination's in-edges made at the sender, which "
+    "cannot weight them by the destination's attention")
+
+
+def refuse_gat(model: str, strategy: Optional[str] = None, mode: str = "vmap") -> None:
+    """Raise where distributed GAT cannot run: a strategy whose plans hold
+    pre-aggregated halo rows, or a one-process-per-worker mode (its ranks
+    run the linear models' layer only)."""
+    if model != "gat":
+        return
+    if strategy in ("hybrid", "pre"):
+        raise NotImplementedError(f"{GAT_NOT_DISTRIBUTED}; got strategy {strategy!r}")
+    if mode != "vmap":
+        raise NotImplementedError(
+            f"model 'gat' does not train under exec.mode={mode!r}: its ranks "
+            "run the linear models' layer only; train GAT distributed with "
+            "exec.mode=vmap (the stacked workers)")
+
+
+def _pre_aggregated_rows(wd) -> bool:
+    """Whether any stage's plan sends a pre-aggregated halo row."""
+    plans = [wd.plan] if wd.plan is not None else list(wd.hier_plan or ())
+    return any(bool((pl.pre_weight != 0).any()) for pl in plans)
 
 
 def resolve_device(device) -> torch.device:
@@ -495,6 +525,17 @@ def _local_aggregate(h: torch.Tensor, wd: WorkerData,
     return out
 
 
+def _local_gat(p, h: torch.Tensor, cfg: M.GCNConfig, wd: WorkerData, layer: int):
+    """GAT's softmax partials over every worker's local in-edges, on every
+    backend their COO arrays (``core.layers.gat_local_partial``), which
+    ``finalize`` completes."""
+    with span("gnn.aggregate.local", role="local"):
+        out = gat_local_partial(p, h, cfg.gat_heads, layer,
+                                (wd.coo_src, wd.coo_dst, wd.coo_w))
+    X._note("index_add", out.acc, role="local", level="")
+    return out
+
+
 def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
                   prop_mask, randomness=None, epoch: Optional[int] = None,
                   train: bool = False, halo_cache=None, schedule=None):
@@ -526,9 +567,14 @@ def _dist_forward(params, cfg: M.GCNConfig, dc: DistConfig, wd: WorkerData,
         with span("gnn.layer", layer=l):
             with span("gnn.exchange.issue"):
                 inflight = prog.issue(h, noise, cache_entry=entry, epoch=epoch)
-            local = _local_aggregate(h, wd, dc.agg_backend)
+            if cfg.model == "gat":
+                local = _local_gat(params["layers"][l], h, cfg, wd, l)
+            else:
+                local = _local_aggregate(h, wd, dc.agg_backend)
             with span("gnn.exchange.finalize"):
                 agg, ne = prog.finalize(local, inflight)
+            if cfg.model == "gat":
+                agg = agg.finish()
         new_cache.append(ne)
         return agg
 
@@ -560,7 +606,7 @@ class DistributedTrainer:
                 "(repro_torch.launch.multiproc.MultiprocRuntime, "
                 "repro_torch.launch.spmd.ShardMapRuntime): one process's "
                 "object cannot hold the ranks")
-        if cfg.model == "gat":
+        if cfg.model == "gat" and _pre_aggregated_rows(wd):
             raise NotImplementedError(GAT_NOT_DISTRIBUTED)
         self.cfg, self.dc, self.wd, self.mode = cfg, dc, wd, mode
         self.device = wd.x.device

@@ -304,6 +304,19 @@ def flat_rows(t: torch.Tensor, per_worker: int) -> torch.Tensor:
     return t.long() + off.view(-1, *([1] * (t.dim() - 1)))
 
 
+def add_rows(base: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``vals`` added into its rows ``rows`` (out of place).
+
+    The sum of each row is taken in a fixed order on every device, so a
+    run repeats bit for bit: ``index_add`` adds in index order on the CPU,
+    but with atomics on the card, where ``index_put`` with
+    ``accumulate=True`` sorts the indices (stably) and then adds each
+    row's values in that order."""
+    if base.device.type == "cpu":
+        return base.index_add(0, rows, vals)
+    return base.index_put((rows,), vals, accumulate=True)
+
+
 def bucketed_forward_ref(x: torch.Tensor, ell: DeviceBucketedEll,
                          out_rows: int) -> torch.Tensor:
     """The plain bucketed forward: ``index_add_`` of each bucket's rows up

@@ -109,7 +109,8 @@ from repro_torch.core.exchange import (
     host_send_bucketed,
 )
 from repro_torch.core.randomness import GeneratorRandomness
-from repro_torch.core.trainer import WorkerData, _grads, _local_aggregate, resolve_device
+from repro_torch.core.trainer import (WorkerData, _grads, _local_aggregate, refuse_gat,
+                                      resolve_device)
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import quant_pack as qp
 from repro_torch.kernels import seg_aggregate as sa
@@ -1380,6 +1381,7 @@ class MultiprocRuntime(_Fleet):
 
     def __init__(self, spec, hwd, device="cuda", params=None, randomness=None):
         self.spec = spec
+        refuse_gat(spec.model.model, mode="multiproc")
         self.nprocs = spec.exec.nprocs or spec.partition.nparts
         if self.nprocs != spec.partition.nparts:
             raise ValueError(

@@ -70,6 +70,7 @@ from repro_torch.core import exchange as X
 from repro_torch.core.exchange import CollectiveWire, _timed_wire
 from repro_torch.core.randomness import GeneratorRandomness
 from repro_torch.core.record import LoweredStep, RankPrograms
+from repro_torch.core.trainer import refuse_gat
 from repro_torch.launch.mesh import Mesh, make_hier_worker_mesh, make_worker_mesh, mesh_groups
 from repro_torch.launch.multiproc import (
     _PARENT_WAIT_S,
@@ -281,6 +282,7 @@ class ShardMapRuntime(_Fleet):
     def __init__(self, spec, hwd, device="cuda", params=None, randomness=None,
                  backend: Optional[str] = None):
         self.spec = spec
+        refuse_gat(spec.model.model, mode="shard_map")
         self.nprocs = spec.partition.nparts
         if spec.exec.nprocs and spec.exec.nprocs != self.nprocs:
             raise ValueError(

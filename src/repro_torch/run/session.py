@@ -367,13 +367,16 @@ def build_session(spec: RunSpec, device="cuda", randomness=None,
     pickle: every rank gets a copy); ``cache`` shares the graph and
     partition builds with other sessions. ``backend`` is shard_map's
     ``torch.distributed`` backend (default: NCCL on the card, gloo on the
-    CPU; ``launch.spmd.resolve_backend``), and no other mode takes one."""
+    CPU; ``launch.spmd.resolve_backend``), and no other mode takes one.
+    GAT is refused before the partition where it cannot run
+    (``core.trainer.refuse_gat``)."""
     from repro_torch.core import DistributedTrainer
     from repro_torch.core.trainer import (lift_worker_data,
                                           prepare_distributed_host,
-                                          resolve_device)
+                                          refuse_gat, resolve_device)
 
     spec = resolve_auto(spec.validate())
+    refuse_gat(spec.model.model, spec.partition.strategy, spec.exec.mode)
     if backend is not None and spec.exec.mode != "shard_map":
         raise ValueError(f"backend={backend!r} is for exec.mode=shard_map, not "
                          f"{spec.exec.mode!r}")

@@ -156,16 +156,22 @@ def test_gat_init_keys_shapes_and_head_check():
         TL.init_layer(torch.Generator().manual_seed(0), "gat", 12, 47, 4)
 
 
-def test_distributed_gat_still_refused():
+@pytest.mark.parametrize("strategy", ["hybrid", "pre", "post"])
+def test_distributed_gat_still_refused(strategy):
     """ROADMAP C-ref7: the JAX package's distributed GAT raises a
-    broadcasting error, so the port's distributed trainer refuses GAT
-    with a message that says so."""
+    broadcasting error. The port's trains GAT where every halo row is a
+    raw source (``post``) and refuses the strategies whose plans send
+    pre-aggregated rows, with a message that says why."""
     spec = RunSpec.load(Path(__file__).resolve().parents[1] / "specs"
                         / "flagship_hier_int2_overlap.json").with_overrides(
-        ["exec.mode=vmap", "model.model=gat"])
-    with pytest.raises(NotImplementedError, match="C-ref7"):
+        ["exec.mode=vmap", "model.model=gat", f"partition.strategy={strategy}"])
+    if strategy == "post":
+        s = build_session(spec, device="cpu")
+        assert np.isfinite(s.train_epoch()["loss"]) and 0.0 <= s.evaluate() <= 1.0
+        return
+    with pytest.raises(NotImplementedError, match="pre-aggregated"):
         build_session(spec, device="cpu")
-    assert "train_gcn_single" in GAT_NOT_DISTRIBUTED
+    assert "strategy=post" in GAT_NOT_DISTRIBUTED
 
 
 SPEC = {
